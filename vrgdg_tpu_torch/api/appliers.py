@@ -1,0 +1,460 @@
+"""Library API: apply LUT / film grain / adjust / the fused grade to videos.
+
+Counterpart of the video appliers of :mod:`vrgdg_tpu.api.appliers`: same
+parameter names and result-dict fields (``elapsed_seconds``,
+``processed_fps``, codec fallback and ffmpeg re-encode status,
+``stage_seconds``), with the pixel math running as torch batches on an
+explicit device.
+
+The per-batch loop lives in :func:`stream_graded_batches`, a generator over
+uint8 ``(B, H, W, 3)`` host batches: uint8 upload, dequantize, the effect,
+quantize, uint8 download.  :func:`_apply_effect_to_video` wraps it with the
+video reader and writer; it runs just as well over an in-memory batch
+source.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import subprocess
+import tempfile
+import time
+from collections import deque
+from typing import Callable, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ..core.cube import GLOBAL_LUT_CACHE
+from ..core.params import (AdjustSettings, ColorMatchParams, GrainParams,
+                           LUTParams, SharpenParams)
+from ..ops.color_match import lab_statistics
+from ..ops.grade import GradeConfig, grade_prepared, prepare_operands
+from ..runtime import profiling, video_io
+from . import paths
+
+Effect = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for a name; asking for CUDA without a visible card
+    raises instead of carrying on on the CPU."""
+    resolved = torch.device(device)
+    if resolved.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} was requested but no CUDA device is "
+            "available (torch.cuda.is_available() is False); pass "
+            "device='cpu' to run the plain versions on the CPU.")
+    return resolved
+
+
+def device_name(device) -> str:
+    """The torch device, with the card's name for CUDA devices."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return f"{device} ({torch.cuda.get_device_name(device)})"
+    return str(device)
+
+
+def _normalize_crf(value, default):
+    try:
+        return max(12, min(35, int(round(float(value)))))
+    except (TypeError, ValueError):
+        return default
+
+
+def _normalize_preset(value, default):
+    value = str(value or "").strip().lower()
+    return value if value in {"ultrafast", "superfast", "veryfast", "faster",
+                              "fast", "medium", "slow"} else default
+
+
+def _default_output_path(input_path: str, tag: str) -> str:
+    stem, ext = os.path.splitext(input_path)
+    safe_tag = os.path.splitext(os.path.basename(tag))[0] if tag else "graded"
+    return f"{stem}_{safe_tag}{ext}"
+
+
+def _write_thumbnail(video_path: str, thumbnail_path: str = "") -> str:
+    import cv2
+
+    if not thumbnail_path:
+        thumbnail_path = os.path.splitext(video_path)[0] + "_thumb.jpg"
+    capture = cv2.VideoCapture(video_path)
+    try:
+        ok, frame = capture.read()
+    finally:
+        capture.release()
+    if not ok:
+        return ""
+    height, width = frame.shape[:2]
+    scale = min(1.0, 320.0 / max(1, width))
+    if scale < 1.0:
+        frame = cv2.resize(frame, (int(width * scale), int(height * scale)))
+    return thumbnail_path if cv2.imwrite(thumbnail_path, frame) else ""
+
+
+def ffmpeg_browser_encode(video_path: str, audio_source: str = "",
+                          crf: int = 23, preset: str = "medium") -> dict:
+    """Re-encode in place to browser-friendly H.264 + remux audio when the
+    ffmpeg binary exists; reports rather than fails when it does not."""
+    ffmpeg = video_io.find_ffmpeg()
+    if not ffmpeg:
+        return {"ok": False, "error": "ffmpeg is not available",
+                "audio_preserved": False}
+    folder = os.path.dirname(os.path.abspath(video_path))
+    fd, temp_out = tempfile.mkstemp(prefix="vrgdg_enc_", suffix=".mp4",
+                                    dir=folder)
+    os.close(fd)
+    command = [ffmpeg, "-y", "-i", video_path]
+    if audio_source:
+        command += ["-i", audio_source, "-map", "0:v:0", "-map", "1:a?",
+                    "-c:a", "aac", "-b:a", "192k"]
+    else:
+        command += ["-an"]
+    command += ["-c:v", "libx264", "-preset",
+                _normalize_preset(preset, "medium"),
+                "-crf", str(_normalize_crf(crf, 23)), "-pix_fmt", "yuv420p",
+                "-movflags", "+faststart", temp_out]
+    result = subprocess.run(command, capture_output=True, text=True,
+                            errors="replace", check=False)
+    if result.returncode != 0 or not os.path.isfile(temp_out):
+        with contextlib.suppress(OSError):
+            os.remove(temp_out)
+        return {"ok": False, "error": (result.stderr or "ffmpeg failed")[-1000:],
+                "audio_preserved": False}
+    os.replace(temp_out, video_path)
+    return {"ok": True, "encoder": "ffmpeg:libx264",
+            "audio_preserved": bool(audio_source)}
+
+
+def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
+                          effect: Effect, *, batch_size: int, device,
+                          dispatch_depth: int = 2,
+                          timer: profiling.StageTimer | None = None,
+                          stats: dict | None = None) -> Iterator[np.ndarray]:
+    """Run ``effect`` over ``(first_frame_index, uint8 (B, H, W, 3))`` host
+    batches and yield the uint8 results, in order, real frames only.
+
+    Tail batches are padded back to ``batch_size`` by repeating the last
+    frame, so every batch has one shape; every stage is frame-local
+    (per-frame colour-match statistics, grain keyed on seed + absolute
+    frame index), so the real frames' outputs do not change and the pad
+    frames are sliced off.  Up to ``dispatch_depth`` batches are in
+    flight: on CUDA each batch's upload, kernels and download are queued
+    on the current stream without waiting, through pinned host buffers,
+    and the host waits for a batch only when its result is due, so host
+    decode and encode overlap device work.
+
+    ``stats`` (optional) receives ``frames``, ``batches`` and, on CUDA,
+    ``device_ms``: the summed CUDA-event time from each batch's upload to
+    the end of its download.
+    """
+    device = resolve_device(device)
+    timer = timer or profiling.StageTimer()
+    stats = {} if stats is None else stats
+    stats.update(frames=0, batches=0)
+    if device.type == "cuda":
+        stats["device_ms"] = 0.0
+    depth = max(1, int(dispatch_depth))
+    in_flight: deque = deque()
+
+    def submit(frame_index: int, batch: np.ndarray):
+        real = int(batch.shape[0])
+        if real != batch_size and real > 0:
+            batch = np.concatenate(
+                [batch, np.repeat(batch[-1:], batch_size - real, 0)])
+        host = torch.from_numpy(np.ascontiguousarray(batch))
+        if device.type != "cuda":
+            out = video_io.quantize_on_device(effect(
+                video_io.dequantize_on_device(host.to(device)), frame_index))
+            return out, real, None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        pinned = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
+        pinned.copy_(host)
+        start.record()
+        on_device = pinned.to(device, non_blocking=True)
+        out = video_io.quantize_on_device(effect(
+            video_io.dequantize_on_device(on_device), frame_index))
+        host_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
+        host_out.copy_(out, non_blocking=True)
+        end.record()
+        return host_out, real, (start, end)
+
+    def force(item) -> np.ndarray:
+        out, real, events = item
+        if events is not None:
+            events[1].synchronize()
+            stats["device_ms"] += events[0].elapsed_time(events[1])
+        result = out.cpu().numpy()[:real]
+        stats["frames"] += result.shape[0]
+        stats["batches"] += 1
+        return result
+
+    iterator = iter(batches)
+    while True:
+        with timer.stage("decode"):
+            item = next(iterator, None)
+        if item is None:
+            break
+        frame_index, batch = item
+        with timer.stage("device"):
+            in_flight.append(submit(int(frame_index), batch))
+            if len(in_flight) < depth:
+                continue
+            out = force(in_flight.popleft())
+        with timer.stage("encode"):
+            yield out
+    while in_flight:
+        with timer.stage("device"):
+            out = force(in_flight.popleft())
+        with timer.stage("encode"):
+            yield out
+
+
+def _apply_effect_to_video(input_path, effect: Effect, *, tag: str, device,
+                           output_path="", batch_size=8,
+                           replace_source=False, thumbnail_path="",
+                           preserve_audio=True, encode_crf=23,
+                           encode_preset="medium", dispatch_depth=2,
+                           extra_fields: dict | None = None) -> dict:
+    """Decode -> :func:`stream_graded_batches` -> encode, with the
+    reference's codec fallback, browser re-encode and telemetry."""
+    device = resolve_device(device)
+    input_path = paths.resolve_media_path(input_path, "Input video")
+    if os.path.splitext(input_path)[1].lower() not in paths.SUPPORTED_VIDEO_EXTENSIONS:
+        raise ValueError("Input video type is not supported.")
+    output_path = os.path.abspath(
+        str(output_path or "").strip().strip('"')
+        or _default_output_path(input_path, tag))
+    if replace_source:
+        output_path = input_path
+
+    os.makedirs(os.path.dirname(output_path), exist_ok=True)
+    tmp_output = output_path
+    if replace_source:
+        fd, tmp_output = tempfile.mkstemp(
+            prefix="vrgdg_tpu_", suffix=".mp4",
+            dir=os.path.dirname(input_path))
+        os.close(fd)
+
+    metadata = video_io.probe_video(input_path)
+    fps, width, height = metadata["fps"], metadata["width"], metadata["height"]
+    started = time.perf_counter()
+    stats: dict = {}
+    timer = profiling.StageTimer()
+
+    def producer():
+        reader = video_io.VideoReader(input_path, batch_size=batch_size)
+        with reader, video_io.PrefetchingReader(reader) as prefetch:
+            yield from stream_graded_batches(
+                prefetch, effect, batch_size=batch_size, device=device,
+                dispatch_depth=dispatch_depth, timer=timer, stats=stats)
+
+    with profiling.maybe_trace(tag):
+        selected_codec = video_io.write_video_with_fallback(
+            tmp_output, fps, width, height, producer)
+    processed_frames = stats.get("frames", 0)
+
+    ffmpeg_result = ffmpeg_browser_encode(
+        tmp_output, input_path if preserve_audio else "",
+        encode_crf, encode_preset)
+    encoder = (ffmpeg_result.get("encoder") if ffmpeg_result.get("ok")
+               else f"cv2:{selected_codec}")
+    if replace_source:
+        os.replace(tmp_output, output_path)
+
+    thumbnail_path = _write_thumbnail(output_path, thumbnail_path)
+    elapsed = time.perf_counter() - started
+    result = {
+        "input": input_path,
+        "output": output_path,
+        "device": device_name(device),
+        "replace_source": bool(replace_source),
+        "width": width,
+        "height": height,
+        "fps": fps,
+        "reported_frames": metadata["frame_count"],
+        "processed_frames": processed_frames,
+        "elapsed_seconds": elapsed,
+        "processed_fps": processed_frames / elapsed if elapsed > 0 else 0.0,
+        "audio_preserved": bool(ffmpeg_result.get("audio_preserved")),
+        "source_had_audio": metadata["has_audio"],
+        "preserve_audio": bool(preserve_audio),
+        "encode_crf": _normalize_crf(encode_crf, 23),
+        "encode_preset": _normalize_preset(encode_preset, "medium"),
+        "thumbnail_path": thumbnail_path,
+        "encoder": encoder,
+        "browser_friendly": bool(ffmpeg_result.get("ok")),
+        "ffmpeg_encode": ffmpeg_result,
+        "dispatch_depth": max(1, int(dispatch_depth)),
+        # decode = waiting on the prefetching reader, device = upload +
+        # effect + download, encode = cv2 write (downstream of yield)
+        "stage_seconds": timer.seconds(),
+    }
+    if "device_ms" in stats:
+        result["device_ms"] = stats["device_ms"]
+    result.update(extra_fields or {})
+    return result
+
+
+# --------------------------------------------------------------------------
+# Effect builders: operands resolved on the device once per video
+# --------------------------------------------------------------------------
+
+def grade_effect(config: GradeConfig, device, *, lut=None,
+                 ref_stats=None) -> Effect:
+    """``effect(batch, first_frame_index)`` running ``config`` on
+    ``device``, with the LUT and reference statistics resolved there
+    once."""
+    operands = prepare_operands(config, lut=lut, ref_stats=ref_stats,
+                                device=resolve_device(device))
+
+    def effect(batch: torch.Tensor, frame_index: int) -> torch.Tensor:
+        return grade_prepared(batch, config, *operands,
+                              frame_start=frame_index)
+
+    return effect
+
+
+def _load_reference_image(reference_image) -> np.ndarray:
+    """A reference image path (read with cv2) or array -> (1, H, W, 3)
+    float32 RGB in [0,1]."""
+    if isinstance(reference_image, (str, os.PathLike)):
+        import cv2
+
+        path = paths.resolve_media_path(reference_image, "Reference image")
+        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise ValueError(f"Could not read the reference image {path}.")
+        return (np.ascontiguousarray(bgr[..., ::-1], dtype=np.float32)
+                / 255.0)[None]
+    ref = np.asarray(reference_image, np.float32)
+    return ref[None] if ref.ndim == 3 else ref
+
+
+# --------------------------------------------------------------------------
+# Public appliers (reference-parity surface)
+# --------------------------------------------------------------------------
+
+def apply_lut_to_video(input_path, lut_name, output_path="", strength=10.0,
+                       batch_size=8, replace_source=False, thumbnail_path="",
+                       preserve_audio=True, encode_crf=23,
+                       encode_preset="medium", luts_dir=None, *,
+                       device="cuda") -> dict:
+    lut = GLOBAL_LUT_CACHE.load(paths.safe_lut_path(lut_name, luts_dir))
+    lut_base = os.path.basename(str(lut_name))
+    effect = grade_effect(GradeConfig(lut=LUTParams.normalize(strength)),
+                          device, lut=lut)
+    return _apply_effect_to_video(
+        input_path, effect, tag=lut_base, device=device,
+        output_path=output_path, batch_size=batch_size,
+        replace_source=replace_source, thumbnail_path=thumbnail_path,
+        preserve_audio=preserve_audio, encode_crf=encode_crf,
+        encode_preset=encode_preset,
+        extra_fields={"lut": lut_base, "strength": float(strength)})
+
+
+def apply_film_grain_to_video(input_path, output_path="",
+                              grain_intensity=0.04, saturation_mix=0.5,
+                              seed=None, batch_size=8, replace_source=False,
+                              thumbnail_path="", preserve_audio=True,
+                              encode_crf=26, encode_preset="medium", *,
+                              device="cuda") -> dict:
+    params = GrainParams.normalize(grain_intensity, saturation_mix, seed or 0)
+    effect = grade_effect(GradeConfig(grain=params), device)
+    return _apply_effect_to_video(
+        input_path, effect, tag="grain", device=device,
+        output_path=output_path, batch_size=batch_size,
+        replace_source=replace_source, thumbnail_path=thumbnail_path,
+        preserve_audio=preserve_audio, encode_crf=encode_crf,
+        encode_preset=encode_preset,
+        extra_fields={"grain_intensity": float(grain_intensity),
+                      "saturation_mix": float(saturation_mix),
+                      "seed": seed})
+
+
+def apply_adjust_to_video(input_path, output_path="", settings=None,
+                          batch_size=8, replace_source=False,
+                          thumbnail_path="", preserve_audio=True,
+                          encode_crf=23, encode_preset="medium", *,
+                          device="cuda") -> dict:
+    normalized = AdjustSettings.normalize(settings)
+    effect = grade_effect(GradeConfig(adjust=normalized), device)
+    return _apply_effect_to_video(
+        input_path, effect, tag="adjust", device=device,
+        output_path=output_path, batch_size=batch_size,
+        replace_source=replace_source, thumbnail_path=thumbnail_path,
+        preserve_audio=preserve_audio, encode_crf=encode_crf,
+        encode_preset=encode_preset,
+        extra_fields={"settings": normalized.to_dict()})
+
+
+def grade_config(*, lut=None, lut_strength=10.0, adjust=None,
+                 ref_stats=None, match_strength=1.0, sharpen_strength=0.0,
+                 sharpen_kind="unsharp", sharpen_border="zero",
+                 grain_intensity=0.0, saturation_mix=0.5, seed=0,
+                 fused_mode="eager") -> GradeConfig:
+    """The :class:`GradeConfig` :func:`grade_video` builds from its
+    arguments: a stage is on when its operand or strength is given."""
+    return GradeConfig(
+        lut=LUTParams.normalize(lut_strength) if lut is not None else None,
+        adjust=(AdjustSettings.normalize(adjust)
+                if adjust is not None else None),
+        color_match=(ColorMatchParams.normalize(match_strength)
+                     if ref_stats is not None else None),
+        sharpen=(SharpenParams.normalize(sharpen_strength,
+                                         border=sharpen_border,
+                                         kind=sharpen_kind)
+                 if sharpen_strength and sharpen_strength > 0 else None),
+        grain=(GrainParams.normalize(grain_intensity, saturation_mix, seed)
+               if grain_intensity and grain_intensity > 0 else None),
+        fused_mode=str(fused_mode or "eager"),
+    )
+
+
+def grade_video(input_path, output_path="", *, lut_name=None,
+                lut_strength=10.0, adjust=None, reference_image=None,
+                match_strength=1.0, sharpen_strength=0.0,
+                sharpen_kind="unsharp", sharpen_border="zero",
+                grain_intensity=0.0, saturation_mix=0.5, seed=0,
+                batch_size=8, replace_source=False, thumbnail_path="",
+                preserve_audio=True, encode_crf=23, encode_preset="medium",
+                luts_dir=None, fused_mode="eager", device="cuda") -> dict:
+    """The full-stack video grade: every enabled stage per frame batch on
+    ``device``.  ``fused_mode="fused"`` runs the two CUDA kernels (needs
+    LUT + colour match + unsharp/zero enabled)."""
+    device = resolve_device(device)
+    lut = None
+    lut_base = None
+    if lut_name:
+        lut = GLOBAL_LUT_CACHE.load(paths.safe_lut_path(lut_name, luts_dir))
+        lut_base = os.path.basename(str(lut_name))
+
+    ref_stats = None
+    if reference_image is not None:
+        reference = torch.from_numpy(_load_reference_image(reference_image))
+        ref_stats = lab_statistics(reference.to(device))
+
+    config = grade_config(
+        lut=lut, lut_strength=lut_strength, adjust=adjust,
+        ref_stats=ref_stats, match_strength=match_strength,
+        sharpen_strength=sharpen_strength, sharpen_kind=sharpen_kind,
+        sharpen_border=sharpen_border, grain_intensity=grain_intensity,
+        saturation_mix=saturation_mix, seed=seed, fused_mode=fused_mode)
+    effect = grade_effect(config, device, lut=lut, ref_stats=ref_stats)
+    return _apply_effect_to_video(
+        input_path, effect, tag="graded", device=device,
+        output_path=output_path, batch_size=batch_size,
+        replace_source=replace_source, thumbnail_path=thumbnail_path,
+        preserve_audio=preserve_audio, encode_crf=encode_crf,
+        encode_preset=encode_preset,
+        extra_fields={"lut": lut_base,
+                      "fused_mode": config.fused_mode,
+                      "stages": [name for name, on in [
+                          ("lut", config.lut), ("adjust", config.adjust),
+                          ("color_match", config.color_match),
+                          ("sharpen", config.sharpen),
+                          ("grain", config.grain)] if on is not None]})

@@ -1,0 +1,124 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
+  probe  — video metadata
+  grade  — the fused full stack (LUT + adjust + color match + sharpen +
+           grain); ``--fused-mode fused`` runs the two CUDA kernels
+  lut    — 3D .cube LUT on a video
+  grain  — seeded film grain on a video
+  adjust — 13-slider adjust stack on a video
+
+``--device`` defaults to ``cuda``; on a machine without a card the command
+stops with an error unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def _print(result):
+    try:
+        print(json.dumps(result, indent=2, default=str))
+    except BrokenPipeError:
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
+        raise SystemExit(0)
+
+
+def _add_video_common(p):
+    p.add_argument("input")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--no-audio", action="store_true")
+    p.add_argument("--crf", type=int, default=23)
+    p.add_argument("--preset", default="medium")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:N or cpu")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="vrgdg-tpu-torch",
+        description="video post-processing on PyTorch and CUDA")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("grain", help="apply seeded film grain")
+    _add_video_common(p)
+    p.add_argument("--intensity", type=float, default=0.04)
+    p.add_argument("--saturation-mix", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=None)
+
+    p = sub.add_parser("lut", help="apply a .cube LUT")
+    _add_video_common(p)
+    p.add_argument("lut_name")
+    p.add_argument("--strength", type=float, default=10.0)
+    p.add_argument("--luts-dir", default=None)
+
+    p = sub.add_parser("adjust", help="apply the 13-slider adjust stack")
+    _add_video_common(p)
+    p.add_argument("--settings", default="{}",
+                   help='JSON, e.g. \'{"contrast": 20, "saturation": 10}\'')
+
+    p = sub.add_parser("grade", help="fused full-stack grade")
+    _add_video_common(p)
+    p.add_argument("--lut", default=None)
+    p.add_argument("--lut-strength", type=float, default=10.0)
+    p.add_argument("--adjust", default=None, help="JSON settings")
+    p.add_argument("--reference", default=None,
+                   help="reference image for color match")
+    p.add_argument("--match-strength", type=float, default=1.0)
+    p.add_argument("--sharpen", type=float, default=0.0)
+    p.add_argument("--grain", type=float, default=0.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--luts-dir", default=None)
+    p.add_argument("--fused-mode", default="eager",
+                   choices=["eager", "fused"],
+                   help="fused = the two CUDA kernels (needs LUT + color "
+                        "match + unsharp enabled)")
+
+    p = sub.add_parser("probe", help="video metadata")
+    p.add_argument("input")
+
+    args = parser.parse_args(argv)
+
+    if args.command == "probe":
+        from .runtime import video_io
+        _print(video_io.probe_video(args.input))
+        return
+
+    from .api import appliers
+    try:
+        device = appliers.resolve_device(args.device)
+    except RuntimeError as exc:
+        parser.error(str(exc))
+    common = dict(batch_size=args.batch_size,
+                  preserve_audio=not args.no_audio, encode_crf=args.crf,
+                  encode_preset=args.preset, device=device)
+    if args.command == "grain":
+        _print(appliers.apply_film_grain_to_video(
+            args.input, args.output, args.intensity, args.saturation_mix,
+            args.seed, **common))
+    elif args.command == "lut":
+        _print(appliers.apply_lut_to_video(
+            args.input, args.lut_name, args.output, args.strength,
+            luts_dir=args.luts_dir, **common))
+    elif args.command == "adjust":
+        _print(appliers.apply_adjust_to_video(
+            args.input, args.output, json.loads(args.settings), **common))
+    elif args.command == "grade":
+        _print(appliers.grade_video(
+            args.input, args.output, lut_name=args.lut,
+            lut_strength=args.lut_strength,
+            adjust=json.loads(args.adjust) if args.adjust else None,
+            reference_image=args.reference,
+            match_strength=args.match_strength,
+            sharpen_strength=args.sharpen, grain_intensity=args.grain,
+            seed=args.seed, luts_dir=args.luts_dir,
+            fused_mode=args.fused_mode, **common))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,16 @@
+"""Torch image/video ops, counterparts of :mod:`vrgdg_tpu.ops`."""
+
+from .adjust import apply_adjust
+from .color_match import color_match, lab_statistics, transfer_lab_statistics
+from .grade import GradeConfig, from_reference, grade, grade_prepared
+from .grain import film_grain, grain_field
+from .lut import apply_lut, apply_lut_bundle
+from .sharpen import box_blur_3x3, laplacian_sharpen, sobel_sharpen, unsharp
+
+__all__ = [
+    "apply_adjust", "color_match", "lab_statistics",
+    "transfer_lab_statistics", "GradeConfig", "from_reference", "grade",
+    "grade_prepared", "film_grain", "grain_field", "apply_lut",
+    "apply_lut_bundle", "box_blur_3x3", "laplacian_sharpen",
+    "sobel_sharpen", "unsharp",
+]

@@ -1,0 +1,74 @@
+"""Sharpening stencils: unsharp mask, Laplacian, Sobel.
+
+Counterpart of :mod:`vrgdg_tpu.ops.sharpen`: each filter runs a 3x3
+stencil over BHWC frames and adds ``strength * detail`` back, clamped to
+[0,1].  ``border="zero"`` zero-pads, ``border="edge"`` replicates the edge.
+The reference's quirks tied to the border stay tied to it: the Laplacian's
+sign flips under the zero border, and Sobel adds 1e-6 inside its sqrt only
+under the zero border.  The box blur always divides by 9.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _pad_hw(frames: torch.Tensor, border: str) -> torch.Tensor:
+    if border == "edge":
+        h, w = frames.shape[1], frames.shape[2]
+        rows = torch.arange(-1, h + 1, device=frames.device).clamp(0, h - 1)
+        cols = torch.arange(-1, w + 1, device=frames.device).clamp(0, w - 1)
+        return frames.index_select(1, rows).index_select(2, cols)
+    return F.pad(frames, (0, 0, 1, 1, 1, 1))
+
+
+def _shift(padded: torch.Tensor, dy: int, dx: int, h: int, w: int) -> torch.Tensor:
+    return padded[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w, :]
+
+
+def box_blur_3x3(frames: torch.Tensor, border: str = "edge") -> torch.Tensor:
+    """9-tap mean with the chosen border convention (always divides by 9)."""
+    h, w = frames.shape[1], frames.shape[2]
+    p = _pad_hw(frames, border)
+    acc = sum(_shift(p, dy, dx, h, w)
+              for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    return acc / 9.0
+
+
+def unsharp(frames: torch.Tensor, strength, border: str = "edge") -> torch.Tensor:
+    """``out = clamp(img + strength * (img - box3x3(img)))`` (strength 0-10)."""
+    blur = box_blur_3x3(frames, border)
+    return torch.clamp(frames + strength * (frames - blur), 0.0, 1.0)
+
+
+def laplacian_sharpen(frames: torch.Tensor, strength,
+                      border: str = "edge") -> torch.Tensor:
+    """4-neighbour Laplacian detail add (strength 0-2); the zero border
+    takes ``4x - neighbours``, the edge border ``neighbours - 4x``."""
+    h, w = frames.shape[1], frames.shape[2]
+    p = _pad_hw(frames, border)
+    neighbours = (_shift(p, 0, -1, h, w) + _shift(p, -1, 0, h, w)
+                  + _shift(p, 1, 0, h, w) + _shift(p, 0, 1, h, w))
+    lap = neighbours - 4.0 * frames
+    if border == "zero":
+        lap = -lap
+    return torch.clamp(frames + strength * lap, 0.0, 1.0)
+
+
+def sobel_sharpen(frames: torch.Tensor, strength,
+                  border: str = "edge") -> torch.Tensor:
+    """Sobel gradient-magnitude detail add (strength 0-2)."""
+    h, w = frames.shape[1], frames.shape[2]
+    p = _pad_hw(frames, border)
+    gx = (-_shift(p, -1, -1, h, w) - 2.0 * _shift(p, 0, -1, h, w)
+          - _shift(p, 1, -1, h, w)
+          + _shift(p, -1, 1, h, w) + 2.0 * _shift(p, 0, 1, h, w)
+          + _shift(p, 1, 1, h, w))
+    gy = (-_shift(p, -1, -1, h, w) - 2.0 * _shift(p, -1, 0, h, w)
+          - _shift(p, -1, 1, h, w)
+          + _shift(p, 1, -1, h, w) + 2.0 * _shift(p, 1, 0, h, w)
+          + _shift(p, 1, 1, h, w))
+    eps = 1e-6 if border == "zero" else 0.0
+    edges = torch.sqrt(gx * gx + gy * gy + eps)
+    return torch.clamp(frames + strength * edges, 0.0, 1.0)
