@@ -256,7 +256,10 @@ def test_resolve_device_refuses_missing_cuda():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             "import vrgdg_tpu_torch, vrgdg_tpu_torch.api.appliers, "
-            "vrgdg_tpu_torch.cli, vrgdg_tpu_torch.kernels.grade_cuda\n"
+            "vrgdg_tpu_torch.cli, vrgdg_tpu_torch.kernels.grade_cuda, "
+            "vrgdg_tpu_torch.kernels.grain_cuda, "
+            "vrgdg_tpu_torch.kernels.probe_cuda, "
+            "vrgdg_tpu_torch.tools.probe_transpose\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'vrgdg_tpu' or "
             "m.startswith('vrgdg_tpu.')]\n"

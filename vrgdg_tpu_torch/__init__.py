@@ -2,8 +2,8 @@
 
 The same video post-processing (3D .cube LUTs, the adjust stack, LAB
 colour match, sharpening, seeded film grain) over BHWC [0,1] float32
-frame tensors, written in PyTorch for one NVIDIA H100.  The fused grade
-stack's two TPU kernels are hand-written CUDA kernels for sm_90a
+frame tensors, written in PyTorch for one NVIDIA H100.  Every Pallas
+kernel of ``vrgdg_tpu`` is a hand-written CUDA kernel for sm_90a here
 (:mod:`vrgdg_tpu_torch.kernels`).  Each module mirrors its counterpart
 under the same path in ``vrgdg_tpu``, which stays as the reference; this
 package imports neither ``jax`` nor ``vrgdg_tpu``.

@@ -3,11 +3,17 @@
 The sources under ``kernels/csrc/`` have a plain C interface (raw device
 pointers, shapes, scalars and a ``cudaStream_t``), so they compile in
 seconds without PyTorch's headers and bind through :mod:`ctypes`; no
-``ninja`` and no ``torch.utils.cpp_extension`` are needed.  The library is
-built at first use into ``kernels/_build/``, under a name that carries a
-hash of the sources and flags, so an edited source rebuilds.  ``ptxas -v``
-output (registers, shared memory, spills per kernel) is kept beside the
+``ninja`` and no ``torch.utils.cpp_extension`` are needed.  Each ``.cu``
+builds into a library of its own (``grade``, ``grain``, ``probe``), one
+``nvcc`` process per source, all started together at first use, into
+``kernels/_build/`` under a name that carries a hash of the source, the
+shared headers and the flags, so an edited source rebuilds.  ``ptxas -v``
+output (registers, shared memory, spills per kernel) is kept beside each
 library as ``<name>.log``.
+
+:data:`LAUNCHES` counts the kernel launches of every wrapper; a wrapper
+adds one through :func:`check_launch` after its kernel launched, and
+nowhere else.
 
 Nothing here runs at import time: the CPU test suite imports every module
 of the package on a machine without ``nvcc``.
@@ -33,6 +39,11 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 # kernel-vs-plain budgets are ~1e-5.
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# launches per kernel, by the name each wrapper counts under
+LAUNCHES = {name: 0 for name in (
+    "grade_phase1", "grade_phase2", "grade_phase1_planes",
+    "grade_phase2_planes", "film_grain", "weighted_row_sum")}
 
 
 class KernelBuildError(RuntimeError):
@@ -64,7 +75,22 @@ class AdjustParams(ctypes.Structure):
 
 
 _LOCK = threading.Lock()
-_LOADED: BuiltLibrary | None = None
+_LOADED: dict[str, BuiltLibrary] = {}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
+    """Raise on a launcher's non-zero ``cudaGetLastError()``; else count
+    one launch of ``name``."""
+    if code != 0:
+        message = lib.vrgdg_cuda_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
+                           f"({message})")
+    LAUNCHES[name] += 1
 
 
 def find_nvcc() -> str:
@@ -79,12 +105,6 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built.")
 
 
-def _sources() -> list[str]:
-    names = sorted(n for n in os.listdir(CSRC_DIR)
-                   if n.endswith((".cu", ".cuh", ".h")))
-    return [os.path.join(CSRC_DIR, n) for n in names]
-
-
 def _digest(paths: list[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in paths:
@@ -94,59 +114,104 @@ def _digest(paths: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vrgdg_grade_phase1.argtypes = [
-        i32, ptr, ptr, i32, ptr, f32, f32, i32, AdjustParams, i32, i32, i32,
-        ptr, ptr, ptr]
-    lib.vrgdg_grade_phase1.restype = i32
-    lib.vrgdg_grade_phase2.argtypes = [
-        i32, ptr, ptr, i32, i32, i32, f32, f32, f32, f32, ctypes.c_uint32, ptr,
-        ptr]
-    lib.vrgdg_grade_phase2.restype = i32
-    lib.vrgdg_phase1_block_size.argtypes = []
-    lib.vrgdg_phase1_block_size.restype = i32
+def _targets() -> dict[str, str]:
+    """Library stem -> target path, for every ``.cu`` under ``csrc/``."""
+    names = sorted(os.listdir(CSRC_DIR))
+    headers = [os.path.join(CSRC_DIR, n) for n in names
+               if n.endswith((".cuh", ".h"))]
+    targets = {}
+    for name in names:
+        if name.endswith(".cu"):
+            stem = name[:-3]
+            source = os.path.join(CSRC_DIR, name)
+            targets[stem] = os.path.join(
+                BUILD_DIR, f"libvrgdg_{stem}_{_digest([source, *headers])}.so")
+    return targets
+
+
+def _bind(stem: str, lib: ctypes.CDLL) -> None:
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    u32 = ctypes.c_uint32
     lib.vrgdg_cuda_error_string.argtypes = [i32]
     lib.vrgdg_cuda_error_string.restype = ctypes.c_char_p
+    signatures = {
+        "grade": {
+            "vrgdg_grade_phase1": [i32, ptr, ptr, i32, ptr, f32, f32, i32,
+                                   AdjustParams, i32, i32, i32, ptr, ptr,
+                                   ptr],
+            "vrgdg_grade_phase1_planes": [i32, ptr, ptr, i32, ptr, f32, f32,
+                                          i32, i32, i32, ptr, ptr, ptr],
+            "vrgdg_grade_phase2": [i32, ptr, ptr, i32, i32, i32, f32, f32,
+                                   f32, f32, u32, ptr, ptr],
+            "vrgdg_grade_phase2_planes": [i32, ptr, ptr, i32, i32, i32, f32,
+                                          f32, f32, f32, u32, ptr, ptr],
+            "vrgdg_phase1_block_size": [],
+        },
+        "grain": {
+            "vrgdg_film_grain": [i32, ptr, i32, i32, i32, i32, f32, f32, f32,
+                                 u32, ptr, ptr],
+        },
+        "probe": {
+            "vrgdg_weighted_row_sum": [i32, ptr, i64, ptr, ptr],
+        },
+    }[stem]
+    for function, argtypes in signatures.items():
+        getattr(lib, function).argtypes = argtypes
+        getattr(lib, function).restype = i32
 
 
-def load_library() -> BuiltLibrary:
-    """Build (once per source hash) and load the kernel library.
+def load_libraries() -> dict[str, BuiltLibrary]:
+    """Build (once per source hash, all sources in parallel) and load every
+    kernel library, keyed by source stem.
 
     Raises :class:`KernelBuildError` when nvcc is missing or fails; the
-    caller never falls back to the plain versions."""
-    global _LOADED
+    callers never fall back to the plain versions."""
     with _LOCK:
-        if _LOADED is not None:
+        if _LOADED:
             return _LOADED
-        sources = _sources()
-        cu = [p for p in sources if p.endswith(".cu")]
-        name = f"libvrgdg_grade_{_digest(sources)}"
-        target = os.path.join(BUILD_DIR, name + ".so")
-        log_path = os.path.join(BUILD_DIR, name + ".log")
-        seconds = 0.0
-        if not os.path.isfile(target):
+        targets = _targets()
+        missing = {stem: target for stem, target in targets.items()
+                   if not os.path.isfile(target)}
+        seconds = dict.fromkeys(targets, 0.0)
+        if missing:
             os.makedirs(BUILD_DIR, exist_ok=True)
             nvcc = find_nvcc()
-            fd, tmp = tempfile.mkstemp(prefix=name, suffix=".so",
-                                       dir=BUILD_DIR)
-            os.close(fd)
-            started = time.perf_counter()
-            result = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *cu],
-                                    capture_output=True, text=True,
-                                    errors="replace", check=False)
-            seconds = time.perf_counter() - started
-            log = (result.stdout or "") + (result.stderr or "")
-            if result.returncode != 0:
-                os.remove(tmp)
-                raise KernelBuildError(
-                    f"nvcc failed (exit {result.returncode}):\n{log}")
-            with open(log_path, "w", encoding="utf-8") as handle:
-                handle.write(log)
-            os.replace(tmp, target)
-        with open(log_path, encoding="utf-8") as handle:
-            log = handle.read()
-        lib = ctypes.CDLL(target)
-        _bind(lib)
-        _LOADED = BuiltLibrary(lib=lib, path=target, seconds=seconds, log=log)
+            jobs = {}
+            for stem, target in missing.items():
+                fd, tmp = tempfile.mkstemp(prefix=f"libvrgdg_{stem}_",
+                                           suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                source = os.path.join(CSRC_DIR, stem + ".cu")
+                jobs[stem] = (tmp, time.perf_counter(), subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, source],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True, errors="replace"))
+            failures = []
+            for stem, (tmp, started, process) in jobs.items():
+                log, _ = process.communicate()
+                seconds[stem] = time.perf_counter() - started
+                if process.returncode != 0:
+                    os.remove(tmp)
+                    failures.append(f"nvcc failed on {stem}.cu (exit "
+                                    f"{process.returncode}):\n{log}")
+                    continue
+                with open(missing[stem][:-3] + ".log", "w",
+                          encoding="utf-8") as handle:
+                    handle.write(log or "")
+                os.replace(tmp, missing[stem])
+            if failures:
+                raise KernelBuildError("\n".join(failures))
+        for stem, target in targets.items():
+            with open(target[:-3] + ".log", encoding="utf-8") as handle:
+                log = handle.read()
+            lib = ctypes.CDLL(target)
+            _bind(stem, lib)
+            _LOADED[stem] = BuiltLibrary(lib=lib, path=target,
+                                         seconds=seconds[stem], log=log)
         return _LOADED
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<stem>.cu``."""
+    return load_libraries()[stem].lib

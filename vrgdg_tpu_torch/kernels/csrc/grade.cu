@@ -1,65 +1,42 @@
-// The fused grade stack's two Hopper kernels (sm_90a), with a plain C
-// interface loaded through ctypes by vrgdg_tpu_torch/kernels/grade_cuda.py.
+// The fused grade stack's Hopper kernels (sm_90a), with a plain C interface
+// loaded through ctypes by vrgdg_tpu_torch/kernels/grade_cuda.py.  Each
+// phase is one kernel template over two memory layouts:
 //
-// grade_phase1 replaces vrgdg_tpu/kernels/grade_pallas.py::
-// _phase1_rowmajor_kernel: per pixel, the LUT trilerp read straight from
-// the (N^3, 24) corner bundle, the strength blend, the elementwise adjust
-// sliders, RGB -> CIELAB, and per-block float64 partial sums of L, a, b and
-// their squares for the colour-match statistics.
+// - BHWC (the flat layout):
+//   grade_phase1 replaces vrgdg_tpu/kernels/grade_pallas.py::
+//   _phase1_rowmajor_kernel: per pixel, the LUT trilerp read straight from
+//   the (N^3, 24) corner bundle, the strength blend, the elementwise adjust
+//   sliders, RGB -> CIELAB, and per-block float64 partial sums of L, a, b
+//   and their squares for the colour-match statistics.
+//   grade_phase2 replaces grade_pallas.py::_phase2_flat_kernel: the
+//   per-frame affine LAB transfer, LAB -> RGB, the 3x3 zero-border box
+//   unsharp and the Philox4x32-10 film grain.
+// - channel planes (the "rowmajor" and "plane" layouts):
+//   grade_phase1_planes replaces grade_pallas.py::_phase1_kernel: the same
+//   math without adjust, fed by corner-major planes (24, B, H*W) that the
+//   wrapper gathers with torch indexing, as XLA gathers them for the TPU.
+//   grade_phase2_planes replaces grade_pallas.py::_phase2_kernel: phase 2
+//   over (B, 3, H, W) LAB planes in, RGB planes out.
 //
-// grade_phase2 replaces vrgdg_tpu/kernels/grade_pallas.py::
-// _phase2_flat_kernel: the per-frame affine LAB transfer, LAB -> RGB, the
-// 3x3 zero-border box unsharp and the Philox4x32-10 film grain.
+// What bounds them on an H100: phase 1 moves 24 bytes of HBM per pixel
+// (12 in, 12 out) and gathers one 96-byte bundle row per pixel, which stays
+// in the 50 MB L2 (3.4 MB for N=33); the planes variant instead streams the
+// 96 gathered bytes per pixel from HBM (coalesced, one plane per corner
+// value), so it moves 120 bytes per pixel.  Its arithmetic (one powf per
+// channel, one cbrtf per channel) is small beside that.  Phase 2 moves the
+// same 24 bytes per pixel in either layout but is arithmetic-heavy: LAB ->
+// RGB costs three powf per pixel, so each block converts its (8+2) x (32+2)
+// halo tile once into shared memory instead of nine times per pixel, and
+// the grain costs one Philox call (10 rounds) plus two logf/sqrtf and three
+// sinf/cosf per pixel.  The planes layouts read and write each channel as
+// its own coalesced row, the BHWC ones three interleaved floats per thread.
 //
-// Both read and write BHWC float32.  What bounds them on an H100: phase 1
-// moves 24 bytes of HBM per pixel (12 in, 12 out) and gathers one 96-byte
-// bundle row per pixel, which stays in the 50 MB L2 (3.4 MB for N=33); its
-// arithmetic (one powf per channel, one cbrtf per channel) is small beside
-// that.  Phase 2 moves the same 24 bytes per pixel but is arithmetic-heavy:
-// LAB -> RGB costs three powf per pixel, so each block converts its
-// (8+2) x (32+2) halo tile once into shared memory instead of nine times
-// per pixel, and the grain costs one Philox call (10 rounds) plus two
-// logf/sqrtf and three sinf/cosf per pixel.
-//
-// Numerics follow the plain PyTorch versions in grade_cuda.py formula by
-// formula (same constants, same association order, same clip points).
 // Built without --use_fast_math; nvcc's default FMA contraction is the
 // remaining last-ulp difference from the plain versions.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.h"
 
 namespace {
-
-// Rec.709 luma.
-constexpr float kLumaR = 0.2126f;
-constexpr float kLumaG = 0.7152f;
-constexpr float kLumaB = 0.0722f;
-
-// sRGB D65 white and the kornia RGB <-> XYZ matrices
-// (vrgdg_tpu_torch/core/colorspace.py).
-constexpr float kWhiteX = 0.95047f;
-constexpr float kWhiteY = 1.0f;
-constexpr float kWhiteZ = 1.08883f;
-
-__constant__ float kRgb2Xyz[3][3] = {
-    {0.412453f, 0.357580f, 0.180423f},
-    {0.212671f, 0.715160f, 0.072169f},
-    {0.019334f, 0.119193f, 0.950227f},
-};
-__constant__ float kXyz2Rgb[3][3] = {
-    {3.2404813432005266f, -1.5371515162713185f, -0.4985363261688878f},
-    {-0.9692549499965682f, 1.8759900014898907f, 0.0415559265582928f},
-    {0.0556466391351772f, -0.2040413383665112f, 1.0573110696453443f},
-};
-
-constexpr float kLabEps = 0.008856f;
-constexpr float kLabKappa = 7.787f;
-constexpr float kLabOffset = 0.13793103448275862f;  // 4/29
-constexpr float kLabFtCut = 0.2068966f;
-constexpr float kInvGamma = 0.41666666666666669f;   // 1/2.4
-constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;
 
 // Adjust slider bits (grade_cuda.py builds the mask and the values).
 constexpr int kTempTint = 1 << 0;
@@ -78,64 +55,6 @@ constexpr int kPhase1Threads = 256;
 constexpr int kTileW = 32;
 constexpr int kTileH = 8;
 
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
-}
-
-__device__ __forceinline__ float srgb_to_linear(float x) {
-  return x > 0.04045f ? powf((x + 0.055f) / 1.055f, 2.4f) : x / 12.92f;
-}
-
-__device__ __forceinline__ float linear_to_srgb(float x) {
-  return x > 0.0031308f ? 1.055f * powf(fmaxf(x, 0.0f), kInvGamma) - 0.055f
-                        : 12.92f * x;
-}
-
-__device__ __forceinline__ float lab_f(float t) {
-  return t > kLabEps ? cbrtf(fmaxf(t, 0.0f)) : kLabKappa * t + kLabOffset;
-}
-
-__device__ __forceinline__ float lab_f_inverse(float f) {
-  return f > kLabFtCut ? f * f * f : (f - kLabOffset) / kLabKappa;
-}
-
-__device__ __forceinline__ void rgb_to_lab(const float rgb[3], float lab[3]) {
-  const float rl = srgb_to_linear(rgb[0]);
-  const float gl = srgb_to_linear(rgb[1]);
-  const float bl = srgb_to_linear(rgb[2]);
-  const float white[3] = {kWhiteX, kWhiteY, kWhiteZ};
-  float f[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float xyz = rl * kRgb2Xyz[i][0] + gl * kRgb2Xyz[i][1] +
-                      bl * kRgb2Xyz[i][2];
-    f[i] = lab_f(xyz / white[i]);
-  }
-  lab[0] = 116.0f * f[1] - 16.0f;
-  lab[1] = 500.0f * (f[0] - f[1]);
-  lab[2] = 200.0f * (f[1] - f[2]);
-}
-
-// LAB -> sRGB, clipped to [0, 1].
-__device__ __forceinline__ void lab_to_rgb(const float lab[3], float rgb[3]) {
-  const float fy = (lab[0] + 16.0f) / 116.0f;
-  const float fx = lab[1] / 500.0f + fy;
-  const float fz = fmaxf(fy - lab[2] / 200.0f, 0.0f);
-  const float x = lab_f_inverse(fx) * kWhiteX;
-  const float y = lab_f_inverse(fy) * kWhiteY;
-  const float z = lab_f_inverse(fz) * kWhiteZ;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float linear = fmaxf(
-        x * kXyz2Rgb[i][0] + y * kXyz2Rgb[i][1] + z * kXyz2Rgb[i][2], 0.0f);
-    rgb[i] = clip01(linear_to_srgb(linear));
-  }
-}
-
-__device__ __forceinline__ float luma(const float c[3]) {
-  return c[0] * kLumaR + c[1] * kLumaG + c[2] * kLumaB;
-}
-
 // torch.linspace(-1, 1, steps)[i] as PyTorch computes it.
 __device__ __forceinline__ float linspace_pm1(int i, int steps) {
   if (steps == 1) return -1.0f;
@@ -144,27 +63,13 @@ __device__ __forceinline__ float linspace_pm1(int i, int steps) {
                        : 1.0f - step * static_cast<float>(steps - i - 1);
 }
 
-// Philox4x32-10 (Salmon et al., SC'11).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int round = 0; round < 10; ++round) {
-    if (round) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// A uniform in (0, 1] from the top 24 bits, so logf never sees 0.
-__device__ __forceinline__ float uniform01(uint32_t bits) {
-  return static_cast<float>((bits >> 8) + 1u) * kTwoPow24Inv;
+// Offset of channel c of pixel (y, x) of frame b: BHWC interleaves the
+// channels, the planes layout keeps (B, 3, H, W).
+template <bool kPlanes>
+__device__ __forceinline__ size_t pixel_at(int b, int c, size_t pixel,
+                                           size_t pixels) {
+  return kPlanes ? (static_cast<size_t>(b) * 3 + c) * pixels + pixel
+                 : (static_cast<size_t>(b) * pixels + pixel) * 3 + c;
 }
 
 }  // namespace
@@ -252,44 +157,66 @@ __device__ __forceinline__ void apply_adjust(float c[3], int flags,
 // Grid (ceil(H*W / 256), B); one thread per pixel.  partials[b, block, k]
 // holds the block's float64 sums [L, a, b, L^2, a^2, b^2], reduced in a
 // fixed order (warp shuffles, then warp 0 over the warp totals): no
-// atomics, so reruns are bit-identical.
+// atomics, so reruns are bit-identical.  Both layouts write the same
+// partials rows, so the stats barrier is shared.
+//
+// BHWC: src (B, H, W, 3); table the (N^3, 24) bundle, read one 96-byte row
+// per pixel with six float4 loads; lab (B, H, W, 3).
+// Planes: src (3, B, H*W); table the gathered corner planes (24, B, H*W),
+// plane 3j + c holding channel c of corner j; lab (B, 3, H*W).  No adjust.
+template <bool kPlanes>
 __global__ void __launch_bounds__(kPhase1Threads)
 grade_phase1_kernel(const float* __restrict__ src,
-                    const float* __restrict__ bundle, int lut_size,
+                    const float* __restrict__ table, int lut_size,
                     const float* __restrict__ domain, float blend,
                     float keep, int adjust_flags, AdjustParams adjust,
-                    int height, int width, float* __restrict__ lab_out,
+                    int batch, int height, int width,
+                    float* __restrict__ lab_out,
                     double* __restrict__ partials) {
   const int frame = blockIdx.y;
-  const int pixels = height * width;
+  const size_t pixels = static_cast<size_t>(height) * width;
   const int p = blockIdx.x * kPhase1Threads + threadIdx.x;
   double sums[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
   if (p < pixels) {
-    const size_t base = (static_cast<size_t>(frame) * pixels + p) * 3;
-    const float source[3] = {src[base], src[base + 1], src[base + 2]};
+    float source[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      source[c] = kPlanes
+          ? src[(static_cast<size_t>(c) * batch + frame) * pixels + p]
+          : src[pixel_at<false>(frame, c, p, pixels)];
+    }
     const float max_index = static_cast<float>(lut_size - 1);
     float frac[3];
     int lo[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      // (x - dmin) * (1/span): the same expression the plain version uses
+      // (x - dmin) * (1/span): the same expression the plain version and
+      // the planes wrapper's gather use, so frac and cell always agree
       const float coord =
           clip01((source[i] - domain[i]) * domain[3 + i]) * max_index;
       const float floor_coord = floorf(coord);
       frac[i] = coord - floor_coord;
       lo[i] = static_cast<int>(floor_coord);
     }
-    const int cell = (lo[2] * lut_size + lo[1]) * lut_size + lo[0];
-    const float4* row4 =
-        reinterpret_cast<const float4*>(bundle + static_cast<size_t>(cell) * 24);
     float g[24];
+    if constexpr (kPlanes) {
 #pragma unroll
-    for (int q = 0; q < 6; ++q) {
-      const float4 v = __ldg(row4 + q);
-      g[4 * q] = v.x;
-      g[4 * q + 1] = v.y;
-      g[4 * q + 2] = v.z;
-      g[4 * q + 3] = v.w;
+      for (int k = 0; k < 24; ++k) {
+        g[k] = __ldg(table + (static_cast<size_t>(k) * batch + frame) *
+                                 pixels + p);
+      }
+    } else {
+      const int cell = (lo[2] * lut_size + lo[1]) * lut_size + lo[0];
+      const float4* row4 = reinterpret_cast<const float4*>(
+          table + static_cast<size_t>(cell) * 24);
+#pragma unroll
+      for (int q = 0; q < 6; ++q) {
+        const float4 v = __ldg(row4 + q);
+        g[4 * q] = v.x;
+        g[4 * q + 1] = v.y;
+        g[4 * q + 2] = v.z;
+        g[4 * q + 3] = v.w;
+      }
     }
     const float fr = frac[0], fg = frac[1], fb = frac[2];
     float color[3];
@@ -305,7 +232,7 @@ grade_phase1_kernel(const float* __restrict__ src,
       const float graded = clip01(c0 * (1.0f - fr) + c1 * fr);
       color[c] = source[c] * keep + graded * blend;
     }
-    if (adjust_flags & kAdjustOn) {
+    if (!kPlanes && (adjust_flags & kAdjustOn)) {
       apply_adjust(color, adjust_flags, adjust, p / width, p % width, height,
                    width);
     }
@@ -313,7 +240,7 @@ grade_phase1_kernel(const float* __restrict__ src,
     rgb_to_lab(color, lab);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      lab_out[base + c] = lab[c];
+      lab_out[pixel_at<kPlanes>(frame, c, p, pixels)] = lab[c];
       const double v = static_cast<double>(lab[c]);
       sums[c] = v;
       sums[3 + c] = v * v;
@@ -347,7 +274,10 @@ grade_phase1_kernel(const float* __restrict__ src,
 // Grid (ceil(W/32), ceil(H/8), B), block (32, 8).  Each block converts its
 // halo tile's LAB to clipped RGB once, into shared memory; out-of-frame
 // halo entries hold 0 (the zero border).  coeff[b] = [A_L, A_a, A_b, B_L,
-// B_a, B_b] of the affine transfer lab' = A * lab + B.
+// B_a, B_b] of the affine transfer lab' = A * lab + B.  lab and out are
+// BHWC, or (B, 3, H, W) planes when kPlanes; the tile, the 9-tap order and
+// the grain are the same in both, so every layout draws identical grain.
+template <bool kPlanes>
 __global__ void __launch_bounds__(kTileW * kTileH)
 grade_phase2_kernel(const float* __restrict__ lab,
                     const float* __restrict__ coeff, int height, int width,
@@ -357,7 +287,7 @@ grade_phase2_kernel(const float* __restrict__ lab,
   const int frame = blockIdx.z;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
-  const size_t frame_base = static_cast<size_t>(frame) * height * width;
+  const size_t pixels = static_cast<size_t>(height) * width;
   const float a[3] = {coeff[frame * 6], coeff[frame * 6 + 1],
                       coeff[frame * 6 + 2]};
   const float b[3] = {coeff[frame * 6 + 3], coeff[frame * 6 + 4],
@@ -372,10 +302,12 @@ grade_phase2_kernel(const float* __restrict__ lab,
     const int x = x0 + tx - 1;
     float rgb[3] = {0.0f, 0.0f, 0.0f};
     if (y >= 0 && y < height && x >= 0 && x < width) {
-      const size_t base = (frame_base + static_cast<size_t>(y) * width + x) * 3;
+      const size_t pixel = static_cast<size_t>(y) * width + x;
       float v[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = lab[base + c] * a[c] + b[c];
+      for (int c = 0; c < 3; ++c) {
+        v[c] = lab[pixel_at<kPlanes>(frame, c, pixel, pixels)] * a[c] + b[c];
+      }
       lab_to_rgb(v, rgb);
     }
 #pragma unroll
@@ -404,70 +336,105 @@ grade_phase2_kernel(const float* __restrict__ lab,
     sharp[c] = clip01(center + sharpen * (center - blur));
   }
 
-  const size_t base = (frame_base + static_cast<size_t>(y) * width + x) * 3;
+  const size_t pixel = static_cast<size_t>(y) * width + x;
   if (grain > 0.0f) {
-    const uint32_t key = (seed_base + static_cast<uint32_t>(frame)) & 0x7FFFFFFFu;
-    const uint32_t counter = static_cast<uint32_t>(y) * width + x;
-    const uint4 bits = philox4x32_10(make_uint4(counter, 0u, 0u, 0u), key, 0u);
-    const float r0 = sqrtf(-2.0f * logf(uniform01(bits.x)));
-    const float t0 = kTwoPi * uniform01(bits.y);
-    const float r1 = sqrtf(-2.0f * logf(uniform01(bits.z)));
-    const float t1 = kTwoPi * uniform01(bits.w);
-    const float noise[3] = {r0 * cosf(t0), r0 * sinf(t0), r1 * cosf(t1)};
-    const float scale[3] = {2.0f, 1.0f, 3.0f};
+    const uint32_t key = (seed_base + static_cast<uint32_t>(frame)) & kSeedMask;
+    float g[3];
+    grain_field(key, static_cast<uint32_t>(pixel), mix, keep_mix, g);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float g = mix * (noise[c] * scale[c]) + keep_mix * noise[1];
-      out[base + c] = clip01(sharp[c] + g * grain);
+      out[pixel_at<kPlanes>(frame, c, pixel, pixels)] =
+          clip01(sharp[c] + g[c] * grain);
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) out[base + c] = sharp[c];
+    for (int c = 0; c < 3; ++c) {
+      out[pixel_at<kPlanes>(frame, c, pixel, pixels)] = sharp[c];
+    }
   }
+}
+
+template <bool kPlanes>
+int launch_phase1(int device, const float* src, const float* table,
+                  int lut_size, const float* domain, float blend, float keep,
+                  int adjust_flags, AdjustParams adjust, int batch,
+                  int height, int width, float* lab, double* partials,
+                  void* stream) {
+  VRGDG_SELECT_DEVICE(device);
+  const long long pixels = static_cast<long long>(height) * width;
+  const dim3 grid(
+      static_cast<unsigned>((pixels + kPhase1Threads - 1) / kPhase1Threads),
+      batch);
+  grade_phase1_kernel<kPlanes><<<grid, kPhase1Threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      src, table, lut_size, domain, blend, keep, adjust_flags, adjust, batch,
+      height, width, lab, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPlanes>
+int launch_phase2(int device, const float* lab, const float* coeff,
+                  int batch, int height, int width, float sharpen,
+                  float grain, float mix, float keep_mix,
+                  unsigned int seed_base, float* out, void* stream) {
+  VRGDG_SELECT_DEVICE(device);
+  const dim3 block(kTileW, kTileH);
+  const dim3 grid((width + kTileW - 1) / kTileW,
+                  (height + kTileH - 1) / kTileH, batch);
+  grade_phase2_kernel<kPlanes><<<grid, block, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      lab, coeff, height, width, sharpen, grain, mix, keep_mix, seed_base,
+      out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
-// Each launcher selects ``device`` first: this library links its own CUDA
-// runtime, whose current device is not PyTorch's.
+// Each launcher returns cudaGetLastError() after the launch (0 = launched).
+
 int vrgdg_grade_phase1(int device, const float* src, const float* bundle,
                        int lut_size, const float* domain, float blend,
                        float keep, int adjust_flags, AdjustParams adjust,
                        int batch, int height, int width, float* lab,
                        double* partials, void* stream) {
-  const cudaError_t selected = cudaSetDevice(device);
-  if (selected != cudaSuccess) return static_cast<int>(selected);
-  const int pixels = height * width;
-  const dim3 grid((pixels + kPhase1Threads - 1) / kPhase1Threads, batch);
-  grade_phase1_kernel<<<grid, kPhase1Threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      src, bundle, lut_size, domain, blend, keep, adjust_flags, adjust,
-      height, width, lab, partials);
-  return static_cast<int>(cudaGetLastError());
+  return launch_phase1<false>(device, src, bundle, lut_size, domain, blend,
+                              keep, adjust_flags, adjust, batch, height,
+                              width, lab, partials, stream);
+}
+
+int vrgdg_grade_phase1_planes(int device, const float* src_planes,
+                              const float* corner_planes, int lut_size,
+                              const float* domain, float blend, float keep,
+                              int batch, int height, int width,
+                              float* lab_planes, double* partials,
+                              void* stream) {
+  return launch_phase1<true>(device, src_planes, corner_planes, lut_size,
+                             domain, blend, keep, 0, AdjustParams{}, batch,
+                             height, width, lab_planes, partials, stream);
 }
 
 int vrgdg_grade_phase2(int device, const float* lab, const float* coeff,
                        int batch, int height, int width, float sharpen,
                        float grain, float mix, float keep_mix,
                        unsigned int seed_base, float* out, void* stream) {
-  const cudaError_t selected = cudaSetDevice(device);
-  if (selected != cudaSuccess) return static_cast<int>(selected);
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((width + kTileW - 1) / kTileW,
-                  (height + kTileH - 1) / kTileH, batch);
-  grade_phase2_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      lab, coeff, height, width, sharpen, grain, mix, keep_mix, seed_base,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_phase2<false>(device, lab, coeff, batch, height, width,
+                              sharpen, grain, mix, keep_mix, seed_base, out,
+                              stream);
+}
+
+int vrgdg_grade_phase2_planes(int device, const float* lab_planes,
+                              const float* coeff, int batch, int height,
+                              int width, float sharpen, float grain,
+                              float mix, float keep_mix,
+                              unsigned int seed_base, float* out_planes,
+                              void* stream) {
+  return launch_phase2<true>(device, lab_planes, coeff, batch, height, width,
+                             sharpen, grain, mix, keep_mix, seed_base,
+                             out_planes, stream);
 }
 
 int vrgdg_phase1_block_size() { return kPhase1Threads; }
-
-const char* vrgdg_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 }  // extern "C"

@@ -1,9 +1,9 @@
-"""The fused grade stack's two hand-written CUDA kernels, their wrappers and
+"""The fused grade stack's hand-written CUDA kernels, their wrappers and
 their plain PyTorch versions.
 
-Counterpart of :func:`vrgdg_tpu.kernels.grade_pallas.fused_post_gather`
-(``layout="flat"``).  The colour-match statistics force a full-frame
-barrier, so the stack after the LUT runs as two kernels around it:
+Counterpart of :func:`vrgdg_tpu.kernels.grade_pallas.fused_post_gather`.
+The colour-match statistics force a full-frame barrier, so the stack after
+the LUT runs as two kernels around it:
 
 - **phase 1** (``grade_phase1`` in ``csrc/grade.cu``; replaces
   ``vrgdg_tpu/kernels/grade_pallas.py:297`` ``_phase1_rowmajor_kernel``):
@@ -20,9 +20,23 @@ barrier, so the stack after the LUT runs as two kernels around it:
 
 Both kernels take and give BHWC float32 of any ``H x W``; none of the
 TPU's tiling, padding or lane packing carries over, so nothing caps the
-batch.  Each wrapper runs its plain version only for tensors on the CPU;
-for CUDA tensors it launches its kernel or raises.  ``LAUNCHES`` counts
-the kernel launches of each wrapper.
+batch.  The A/B layouts of the TPU package run the same phases over
+channel planes ``(B, 3, H, W)``:
+
+- **phase 1 on planes** (``grade_phase1_planes``; replaces
+  ``vrgdg_tpu/kernels/grade_pallas.py:218`` ``_phase1_kernel``): phase 1
+  without adjust, fed by corner-major planes ``(24, B, H, W)`` that
+  :func:`corner_planes` gathers with torch indexing outside the kernel;
+- **phase 2 on planes** (``grade_phase2_planes``; replaces
+  ``vrgdg_tpu/kernels/grade_pallas.py:380`` ``_phase2_kernel``).
+
+:func:`fused_post_gather` picks them with ``layout``: ``"flat"`` (phase 1
+-> phase 2, all BHWC), ``"rowmajor"`` (phase 1 -> planes -> phase 2 on
+planes) or ``"plane"`` (corner gather -> both planes kernels).  Each
+wrapper runs its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernel or raises.  :data:`LAUNCHES` (shared with
+the other kernel modules, see :mod:`.build`) counts the kernel launches of
+each wrapper.
 """
 
 from __future__ import annotations
@@ -39,9 +53,11 @@ from ..ops.grain import grain_field
 from ..ops.lut import _trilerp
 from ..ops.sharpen import unsharp
 from . import build
+from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (re-exported)
 
 PHASE1_BLOCK = 256      # pixels per phase-1 block: one partials row each
-LAUNCHES = {"grade_phase1": 0, "grade_phase2": 0}
+LAYOUTS = ("flat", "rowmajor", "plane")
+EMITS = ("bhwc", "planes")
 
 # slider bits of csrc/grade.cu
 _TEMP_TINT, _EXPOSURE, _CONTRAST, _SATURATION = 1, 2, 4, 8
@@ -49,26 +65,13 @@ _HIGHLIGHTS, _SHADOWS, _WHITES, _BLACKS = 16, 32, 64, 128
 _FADE, _VIGNETTE, _ADJUST_ON = 256, 512, 1024
 
 
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
 def _library():
-    lib = build.load_library().lib
+    lib = build.library("grade")
     if lib.vrgdg_phase1_block_size() != PHASE1_BLOCK:
         raise build.KernelBuildError(
             "csrc/grade.cu and grade_cuda.PHASE1_BLOCK disagree on the "
             "phase-1 block size")
     return lib
-
-
-def _check_launch(lib, code: int, name: str) -> None:
-    if code != 0:
-        message = lib.vrgdg_cuda_error_string(code).decode(errors="replace")
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} "
-                           f"({message})")
-    LAUNCHES[name] += 1
 
 
 def _check_adjust(adjust: AdjustSettings | None) -> None:
@@ -161,12 +164,25 @@ def phase1_plain(src: torch.Tensor, bundle: torch.Tensor,
     per block of 256 consecutive pixels, the sums of L, a, b, L^2, a^2,
     b^2."""
     _check_adjust_and_bhwc(src, adjust)
-    size = _lut_size(bundle)
+    cell, frac = _lattice(src, domain, _lut_size(bundle))
+    return _phase1_from_rows(src, bundle[cell], frac, blend=blend,
+                             adjust=adjust)
+
+
+def _lattice(src: torch.Tensor, domain: torch.Tensor, size: int):
+    """Bundle row and lattice fractions of each pixel of a BHWC ``src``,
+    from the coordinate expression the kernels use."""
     coords = torch.clamp((src - domain[0]) * domain[1], 0.0, 1.0) * (size - 1)
     lo = torch.floor(coords)
     frac = coords - lo
     lo = lo.to(torch.int64)
-    rows = bundle[(lo[..., 2] * size + lo[..., 1]) * size + lo[..., 0]]
+    return (lo[..., 2] * size + lo[..., 1]) * size + lo[..., 0], frac
+
+
+def _phase1_from_rows(src, rows, frac, *, blend: float,
+                      adjust: AdjustSettings | None):
+    """Phase 1's math on BHWC ``src``, its ``(B, H, W, 24)`` bundle rows
+    and lattice fractions: LAB and the per-block float64 partials."""
     graded = _trilerp([rows[..., 3 * k:3 * k + 3] for k in range(8)], frac)
     color = src * (1.0 - blend) + graded * blend
     if adjust is not None:
@@ -208,7 +224,84 @@ def phase1(src: torch.Tensor, bundle: torch.Tensor, domain: torch.Tensor,
         domain.data_ptr(), blend, 1.0 - blend, flags, params, batch, height,
         width, lab.data_ptr(), partials.data_ptr(),
         torch.cuda.current_stream(src.device).cuda_stream)
-    _check_launch(lib, code, "grade_phase1")
+    build.check_launch(lib, code, "grade_phase1")
+    return lab, partials
+
+
+# --------------------------------------------------------------------------
+# phase 1 on channel planes: the corner gather outside, no adjust
+# --------------------------------------------------------------------------
+
+def corner_planes(src_planes: torch.Tensor, bundle: torch.Tensor,
+                  domain: torch.Tensor) -> torch.Tensor:
+    """The corner-major gather of the ``"plane"`` layout, in torch ops:
+    ``(24, B, H, W)`` float32, plane ``3j + c`` holding channel ``c`` of
+    lattice corner ``j`` of each pixel (the bundle's column order), as XLA
+    gathers it at ``vrgdg_tpu/kernels/grade_pallas.py:725-731``.  One
+    ``index_select`` on the transposed ``(24, N^3)`` bundle writes the
+    planes directly, 96 bytes per pixel, with no second relayout copy."""
+    src = src_planes.permute(1, 2, 3, 0)
+    cell, _ = _lattice(src, domain, _lut_size(bundle))
+    table = bundle.t().contiguous()
+    return torch.index_select(table, 1, cell.reshape(-1)).reshape(
+        24, *cell.shape)
+
+
+def _check_planes(name: str, tensor: torch.Tensor, leading: int) -> None:
+    _require(tensor.ndim == 4 and tensor.shape[0] == leading,
+             f"{name} must be ({leading}, B, H, W), got {tuple(tensor.shape)}")
+
+
+def phase1_planes_plain(src_planes: torch.Tensor, planes: torch.Tensor,
+                        domain: torch.Tensor, *, blend: float,
+                        lut_size: int):
+    """Plain version of ``grade_phase1_planes``.
+
+    ``src_planes`` ``(3, B, H, W)``, ``planes`` the ``(24, B, H, W)``
+    corner planes of :func:`corner_planes`, ``domain`` ``(2, 3)``.  Returns
+    LAB planes ``(B, 3, H, W)`` and the partials of :func:`phase1_plain`.
+    Runs phase 1's BHWC math on contiguous BHWC copies, so its numbers are
+    :func:`phase1_plain`'s."""
+    _check_planes("src_planes", src_planes, 3)
+    _check_planes("planes", planes, 24)
+    src = src_planes.permute(1, 2, 3, 0).contiguous()
+    _, frac = _lattice(src, domain, lut_size)
+    lab, partials = _phase1_from_rows(
+        src, planes.permute(1, 2, 3, 0).contiguous(), frac, blend=blend,
+        adjust=None)
+    return lab.permute(0, 3, 1, 2).contiguous(), partials
+
+
+def phase1_planes(src_planes: torch.Tensor, planes: torch.Tensor,
+                  domain: torch.Tensor, *, blend: float, lut_size: int):
+    """``grade_phase1_planes`` on CUDA tensors; :func:`phase1_planes_plain`
+    on CPU ones."""
+    if src_planes.device.type == "cpu":
+        return phase1_planes_plain(src_planes, planes, domain, blend=blend,
+                                   lut_size=lut_size)
+    device = src_planes.device
+    _require(device.type == "cuda", f"no kernel for device {device}")
+    _check_planes("src_planes", src_planes, 3)
+    _check_planes("planes", planes, 24)
+    _require(planes.shape[1:] == src_planes.shape[1:],
+             "planes and src_planes must cover the same (B, H, W)")
+    _require(tuple(domain.shape) == (2, 3), "domain must be (2, 3)")
+    _require(lut_size >= 2, "lut_size must be at least 2")
+    for name, tensor in (("src_planes", src_planes), ("planes", planes),
+                         ("domain", domain)):
+        _check_cuda_f32(name, tensor, device)
+    _, batch, height, width = src_planes.shape
+    lab = torch.empty((batch, 3, height, width), dtype=torch.float32,
+                      device=device)
+    partials = torch.empty((batch, math.ceil(height * width / PHASE1_BLOCK),
+                            6), dtype=torch.float64, device=device)
+    lib = _library()
+    code = lib.vrgdg_grade_phase1_planes(
+        device.index, src_planes.data_ptr(), planes.data_ptr(), lut_size,
+        domain.data_ptr(), blend, 1.0 - blend, batch, height, width,
+        lab.data_ptr(), partials.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    build.check_launch(lib, code, "grade_phase1_planes")
     return lab, partials
 
 
@@ -284,7 +377,55 @@ def phase2(lab: torch.Tensor, coeff: torch.Tensor, *,
         width, sharpen_strength, grain_intensity, saturation_mix,
         1.0 - saturation_mix, int(seed_base) & 0xFFFFFFFF, out.data_ptr(),
         torch.cuda.current_stream(lab.device).cuda_stream)
-    _check_launch(lib, code, "grade_phase2")
+    build.check_launch(lib, code, "grade_phase2")
+    return out
+
+
+def _check_lab_planes(lab: torch.Tensor) -> None:
+    _require(lab.ndim == 4 and lab.shape[1] == 3,
+             f"lab must be (B, 3, H, W) planes, got {tuple(lab.shape)}")
+
+
+def phase2_planes_plain(lab: torch.Tensor, coeff: torch.Tensor, *,
+                        sharpen_strength: float, grain_intensity: float,
+                        saturation_mix: float, seed_base: int
+                        ) -> torch.Tensor:
+    """Plain version of ``grade_phase2_planes``: ``(B, 3, H, W)`` LAB planes
+    and ``(B, 6)`` coefficients in, ``(B, 3, H, W)`` RGB planes out.  Runs
+    :func:`phase2_plain` on a contiguous BHWC copy, so every layout draws
+    the same grain and gives the same numbers."""
+    _check_lab_planes(lab)
+    rgb = phase2_plain(lab.permute(0, 2, 3, 1).contiguous(), coeff,
+                       sharpen_strength=sharpen_strength,
+                       grain_intensity=grain_intensity,
+                       saturation_mix=saturation_mix, seed_base=seed_base)
+    return rgb.permute(0, 3, 1, 2).contiguous()
+
+
+def phase2_planes(lab: torch.Tensor, coeff: torch.Tensor, *,
+                  sharpen_strength: float, grain_intensity: float,
+                  saturation_mix: float, seed_base: int) -> torch.Tensor:
+    """``grade_phase2_planes`` on CUDA tensors; :func:`phase2_planes_plain`
+    on CPU ones."""
+    kwargs = dict(sharpen_strength=sharpen_strength,
+                  grain_intensity=grain_intensity,
+                  saturation_mix=saturation_mix, seed_base=seed_base)
+    if lab.device.type == "cpu":
+        return phase2_planes_plain(lab, coeff, **kwargs)
+    _require(lab.device.type == "cuda", f"no kernel for device {lab.device}")
+    _check_lab_planes(lab)
+    _check_cuda_f32("lab", lab, lab.device)
+    _check_cuda_f32("coeff", coeff, lab.device)
+    batch, _, height, width = lab.shape
+    _require(tuple(coeff.shape) == (batch, 6), "coeff must be (B, 6)")
+    out = torch.empty_like(lab)
+    lib = _library()
+    code = lib.vrgdg_grade_phase2_planes(
+        lab.device.index, lab.data_ptr(), coeff.data_ptr(), batch, height,
+        width, sharpen_strength, grain_intensity, saturation_mix,
+        1.0 - saturation_mix, int(seed_base) & 0xFFFFFFFF, out.data_ptr(),
+        torch.cuda.current_stream(lab.device).cuda_stream)
+    build.check_launch(lib, code, "grade_phase2_planes")
     return out
 
 
@@ -302,36 +443,75 @@ def lut_domain(domain_min: torch.Tensor,
     return torch.stack([dmin, inv_span]).contiguous()
 
 
-def _post_gather(first, second, frames, bundle, domain_min, domain_max,
-                 ref_mean, ref_std, seed_plus_start, *, blend,
-                 match_strength, sharpen_strength, grain_intensity,
-                 saturation_mix, adjust):
+def _post_gather(phases, frames, bundle, domain_min, domain_max, ref_mean,
+                 ref_std, seed_plus_start, *, blend, match_strength,
+                 sharpen_strength, grain_intensity, saturation_mix, adjust,
+                 layout, emit):
+    first, second, first_planes, second_planes = phases
+    if layout not in LAYOUTS:
+        raise ValueError(f"Unknown layout {layout!r}")
+    if emit not in EMITS:
+        raise ValueError(f"Unknown emit {emit!r}; expected 'bhwc' or "
+                         "'planes'")
+    if adjust is not None and layout == "plane":
+        # the TPU package's plane phase 1 never grew the adjust chain
+        # (vrgdg_tpu/kernels/grade_pallas.py:616-619); neither does this one
+        raise ValueError("adjust requires layout='flat' or 'rowmajor'")
     _require(frames.ndim == 4 and frames.shape[-1] == 3,
              "the fused grade needs (B, H, W, 3) frames")
     src = frames.to(torch.float32).contiguous()
-    lab, partials = first(src, bundle, lut_domain(domain_min, domain_max),
-                          blend=blend, adjust=adjust)
+    domain = lut_domain(domain_min, domain_max)
+    if layout == "plane":
+        src_planes = src.permute(3, 0, 1, 2).contiguous()
+        # the corner planes are a temporary: freed once phase 1 returns
+        lab, partials = first_planes(
+            src_planes, corner_planes(src_planes, bundle, domain), domain,
+            blend=blend, lut_size=_lut_size(bundle))
+    else:
+        lab, partials = first(src, bundle, domain, blend=blend,
+                              adjust=adjust)
+        if layout == "rowmajor":
+            lab = lab.permute(0, 3, 1, 2).contiguous()
     coeff = stats_barrier(partials, src.shape[1] * src.shape[2], ref_mean,
                           ref_std, match_strength)
-    return second(lab, coeff, sharpen_strength=sharpen_strength,
+    kwargs = dict(sharpen_strength=sharpen_strength,
                   grain_intensity=grain_intensity,
                   saturation_mix=saturation_mix, seed_base=seed_plus_start)
+    if layout == "flat":
+        out = second(lab, coeff, **kwargs)
+        return out.permute(0, 3, 1, 2).contiguous() if emit == "planes" else out
+    out = second_planes(lab, coeff, **kwargs)
+    return out if emit == "planes" else out.permute(0, 2, 3, 1).contiguous()
 
 
 def fused_post_gather(frames, bundle, domain_min, domain_max, ref_mean,
                       ref_std, seed_plus_start: int, *, blend: float,
                       match_strength: float, sharpen_strength: float,
                       grain_intensity: float, saturation_mix: float,
-                      adjust: AdjustSettings | None = None) -> torch.Tensor:
-    """The post-LUT stack for a BHWC [0,1] batch: :func:`phase1`, the
-    barrier, :func:`phase2`.  ``seed_plus_start`` is ``seed +
-    frame_start`` of ``frames[0]``.  Returns BHWC float32."""
-    return _post_gather(phase1, phase2, frames, bundle, domain_min,
-                        domain_max, ref_mean, ref_std, seed_plus_start,
-                        blend=blend, match_strength=match_strength,
+                      adjust: AdjustSettings | None = None,
+                      layout: str = "flat", emit: str = "bhwc"
+                      ) -> torch.Tensor:
+    """The post-LUT stack for a BHWC [0,1] batch: phase 1, the barrier,
+    phase 2.  ``seed_plus_start`` is ``seed + frame_start`` of
+    ``frames[0]``.
+
+    ``layout`` picks the data movement between the phases, as in
+    :func:`vrgdg_tpu.kernels.grade_pallas.fused_post_gather`: ``"flat"``
+    (:func:`phase1` -> :func:`phase2`, all BHWC), ``"rowmajor"``
+    (:func:`phase1`, a permute to planes, :func:`phase2_planes`) or
+    ``"plane"`` (:func:`corner_planes`, :func:`phase1_planes`,
+    :func:`phase2_planes`; no adjust).  All three compute the same numbers.
+    ``emit="planes"`` returns ``(B, 3, H, W)`` instead of BHWC float32; the
+    TPU package honours it on the flat layout only, here every layout
+    does."""
+    return _post_gather((phase1, phase2, phase1_planes, phase2_planes),
+                        frames, bundle, domain_min, domain_max, ref_mean,
+                        ref_std, seed_plus_start, blend=blend,
+                        match_strength=match_strength,
                         sharpen_strength=sharpen_strength,
                         grain_intensity=grain_intensity,
-                        saturation_mix=saturation_mix, adjust=adjust)
+                        saturation_mix=saturation_mix, adjust=adjust,
+                        layout=layout, emit=emit)
 
 
 def fused_post_gather_plain(frames, bundle, domain_min, domain_max,
@@ -339,13 +519,16 @@ def fused_post_gather_plain(frames, bundle, domain_min, domain_max,
                             blend: float, match_strength: float,
                             sharpen_strength: float, grain_intensity: float,
                             saturation_mix: float,
-                            adjust: AdjustSettings | None = None
+                            adjust: AdjustSettings | None = None,
+                            layout: str = "flat", emit: str = "bhwc"
                             ) -> torch.Tensor:
     """:func:`fused_post_gather` through the plain versions, on any device."""
-    return _post_gather(phase1_plain, phase2_plain, frames, bundle,
-                        domain_min, domain_max, ref_mean, ref_std,
-                        seed_plus_start, blend=blend,
+    return _post_gather((phase1_plain, phase2_plain, phase1_planes_plain,
+                         phase2_planes_plain),
+                        frames, bundle, domain_min, domain_max, ref_mean,
+                        ref_std, seed_plus_start, blend=blend,
                         match_strength=match_strength,
                         sharpen_strength=sharpen_strength,
                         grain_intensity=grain_intensity,
-                        saturation_mix=saturation_mix, adjust=adjust)
+                        saturation_mix=saturation_mix, adjust=adjust,
+                        layout=layout, emit=emit)

@@ -9,9 +9,18 @@ Counterpart of :mod:`vrgdg_tpu.ops.grade`.  Two modes run the same math:
   around the colour-match stats barrier.  On CUDA tensors it launches the
   kernels or raises; on CPU tensors it runs their plain versions.
 
-Both draw grain from the Philox stream of :mod:`vrgdg_tpu_torch.ops.grain`,
-so they agree with grain on.  The frames' device decides where the work
-runs; operands are moved there.
+In the eager mode the grain stage runs by ``grain_mode``:
+
+- ``grain_mode="eager"`` (the counterpart of ``"threefry"``, the default):
+  :func:`vrgdg_tpu_torch.ops.grain.film_grain` in torch ops;
+- ``grain_mode="kernel"`` (the counterpart of ``"pallas"``): the standalone
+  ``film_grain`` CUDA kernel of :mod:`vrgdg_tpu_torch.kernels.grain_cuda`
+  on CUDA tensors, its plain version (the same ``film_grain``) on CPU ones.
+
+The fused mode draws its grain inside phase 2 and ignores ``grain_mode``,
+as the JAX package does.  Every path draws from the one Philox stream of
+:mod:`vrgdg_tpu_torch.ops.grain`, so all of them agree with grain on.  The
+frames' device decides where the work runs; operands are moved there.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ _SHARPEN_FNS = {
     "sobel": sobel_sharpen,
 }
 FUSED_MODES = ("eager", "fused")
+GRAIN_MODES = ("eager", "kernel")
 
 # Corner-bundle tables (~3.4 MB each for N=33) cached device-resident per
 # (source table object, device).  Entries hold the source object itself:
@@ -66,9 +76,10 @@ class GradeConfig:
 
     ``lut_mode``: "bundle" (one ``(N^3, 24)`` corner-bundle row per pixel)
     or "reference" (eight corner reads from the raw table); bit-identical.
-    ``fused_mode``: "eager" or "fused" (see the module docstring).  The
-    fused mode needs LUT (bundle) + colour match + unsharp/zero, 3-channel
-    frames, and adjust only with clarity and sharpen at zero.
+    ``fused_mode``: "eager" or "fused"; ``grain_mode``: "eager" or
+    "kernel" (see the module docstring).  The fused mode needs LUT
+    (bundle) + colour match + unsharp/zero, 3-channel frames, and adjust
+    only with clarity and sharpen at zero.
     """
 
     lut: LUTParams | None = None
@@ -78,6 +89,7 @@ class GradeConfig:
     grain: GrainParams | None = None
     lut_mode: str = "bundle"
     fused_mode: str = "eager"
+    grain_mode: str = "eager"
 
     @property
     def any_enabled(self) -> bool:
@@ -145,11 +157,14 @@ def grade_prepared(frames: torch.Tensor, config: GradeConfig, table, dmin,
                    frame_start: int = 0) -> torch.Tensor:
     """Run the stack on operands already resolved by
     :func:`prepare_operands` (or :func:`from_reference`)."""
+    # reject typos loudly: a silent fallback would hand someone measuring
+    # the kernels the wrong numbers
     if config.fused_mode not in FUSED_MODES:
-        # reject typos loudly: a silent eager fallback would hand someone
-        # measuring the fused path the wrong numbers
         raise ValueError(f"Unknown fused_mode {config.fused_mode!r}; "
                          "expected 'eager' or 'fused'.")
+    if config.grain_mode not in GRAIN_MODES:
+        raise ValueError(f"Unknown grain_mode {config.grain_mode!r}; "
+                         "expected 'eager' or 'kernel'.")
     if config.fused_mode == "fused":
         return _run_fused(frames, config, table, dmin, dmax, ref_mean,
                           ref_std, frame_start)
@@ -166,9 +181,14 @@ def grade_prepared(frames: torch.Tensor, config: GradeConfig, table, dmin,
         fn = _SHARPEN_FNS[config.sharpen.kind]
         out = fn(out, config.sharpen.strength, config.sharpen.border)
     if config.grain is not None and config.grain.intensity > 0:
-        out = film_grain(out, config.grain.intensity,
-                         config.grain.saturation_mix, config.grain.seed,
-                         frame_start=frame_start)
+        if config.grain_mode == "kernel":
+            from ..kernels.grain_cuda import film_grain_kernel as grain_fn
+            out = out.contiguous()   # a grain-only stack passes frames as given
+        else:
+            grain_fn = film_grain
+        out = grain_fn(out, config.grain.intensity,
+                       config.grain.saturation_mix, config.grain.seed,
+                       frame_start=frame_start)
     return out
 
 
@@ -257,19 +277,23 @@ def from_reference(config, *, lut_table, domain_min, domain_max, ref_mean,
     ``config`` is a ``vrgdg_tpu.ops.grade.GradeConfig``, read by duck
     typing; the operands are numpy arrays as ``vrgdg_tpu``'s
     ``prepare_operands`` resolves them (``lut_table`` is the corner bundle
-    in bundle mode; a raw ``(N,N,N,3)`` table is bundled here).  ``"xla"``
-    maps to ``"eager"`` and ``"pallas"`` to ``"fused"``.  Returns
-    ``(config, (table, dmin, dmax, ref_mean, ref_std))`` ready for
-    :func:`grade_prepared`."""
+    in bundle mode; a raw ``(N,N,N,3)`` table is bundled here).  The fused
+    mode ``"xla"`` maps to ``"eager"`` and ``"pallas"`` to ``"fused"``; the
+    grain mode ``"threefry"`` maps to ``"eager"`` and ``"pallas"`` to
+    ``"kernel"``.  Other values pass through, and :func:`grade_prepared`
+    rejects them.  Returns ``(config, (table, dmin, dmax, ref_mean,
+    ref_std))`` ready for :func:`grade_prepared`."""
     mode = {"xla": "eager", "pallas": "fused"}.get(config.fused_mode,
                                                    config.fused_mode)
+    grain_mode = {"threefry": "eager", "pallas": "kernel"}.get(
+        config.grain_mode, config.grain_mode)
     port = GradeConfig(
         lut=_port_params(config.lut, LUTParams),
         adjust=_port_params(config.adjust, AdjustSettings),
         color_match=_port_params(config.color_match, ColorMatchParams),
         sharpen=_port_params(config.sharpen, SharpenParams),
         grain=_port_params(config.grain, GrainParams),
-        lut_mode=config.lut_mode, fused_mode=mode)
+        lut_mode=config.lut_mode, fused_mode=mode, grain_mode=grain_mode)
     table = np.asarray(lut_table, np.float32)
     if port.lut_mode == "bundle" and table.ndim == 4:
         table = corner_bundle(table)
