@@ -36,11 +36,23 @@ Phases, one line each (any failure raises and the exit code is not 0):
 9. probe: ``python -m vrgdg_tpu_torch.tools.probe_transpose``'s run, and
    ``weighted_row_sum`` against its plain version at (4096, 24) and at
    4K x 2's pixel count;
-10. file: if cv2 imports, ``grade_video`` on a generated file.
+10. file: if cv2 imports, ``grade_video`` on a generated file;
+11. resample: lanczos4 ``resample`` 1080p -> 2160x3840 on the card
+    against the CPU (<= 1e-5) and cv2 (<= 1e-3), bit-identical with TF32
+    turned on, its ms per frame beside the tap-gather form's;
+12. enhance path: 48 seeded 1080p uint8 frames through the enhancer's
+    submit/force loop to 4K (lanczos4, unsharp 1.0, grain 0.05, seed 42,
+    auto batch 1), with ``film_grain``'s launches (one per batch), fps,
+    device ms per frame and the breakdown; a batch split is bit-identical
+    and a small clip is checked against the CPU path;
+13. enhancer job: ``render_job`` on a generated 72-frame 1080p clip at
+    12 fps to 4K in two segments, with its stage seconds and concat
+    backend; a cancel -> resume on a small clip decodes byte for byte as
+    an uninterrupted run.
 
-Each path (5, 7, 8's layout run, 9's probe run) is driven with the launch
-counts set to 0 just before it and read just after; launches made to
-compare a kernel with its plain version are not counted.  The last three
+Each path (5, 7, 8's layout run, 9's probe run, 12) is driven with the
+launch counts set to 0 just before it and read just after; launches made
+to compare a kernel with its plain version are not counted.  The last three
 lines are the kernels' JSON record, the ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits with a non-zero code
 and prints no result when no CUDA card is visible or the package is
@@ -70,13 +82,24 @@ SPLIT_SHAPE = (8, 1080, 1920)
 RUNS = ((48, 2, 2160, 3840), (100, 8, 1080, 1920))   # frames, batch, H, W
 GRAIN_RUN = (48, 2, 2160, 3840)
 TIMED_PASSES = 3
+RESAMPLE = ((1080, 1920), (2160, 3840))              # (H, W) -> (H, W)
+# bench.py's enhance_step_1080p_to_4k: lanczos4 to 4K, unsharp 1.0,
+# grain 0.05, seed 42
+ENHANCE = dict(upscale_resolution="4k", sharpen_strength=1.0,
+               grain_enabled=True, grain_intensity=0.05, seed=42)
+ENHANCE_RUN = (48, 1080, 1920)                        # frames, H, W
+ENHANCE_SIZE = (3840, 2160)                           # output W, H
+JOB_CLIP = (72, 12.0, (1920, 1080))                   # frames, fps, W x H
 # kernel vs plain on the card: nvcc contracts a*b+c into FMAs and its
 # powf/cbrtf/logf differ from the plain ops' by an ulp or two.  Measured
 # on an H100 (700 W): LAB 1.2e-4, A/B 9.5e-7, RGB 1.07e-5 with grain off
 # and on.  The planes layouts and the grain kernel run the same formulas,
 # so they are held to the same bounds; the probe to its TPU tool's 1e-4.
+# lanczos4 on the card against the CPU: float32 products summed in other
+# orders; against cv2: the JAX suite's cv2 budget.
 BOUNDS = {"lab": 5e-4, "coeff": 1e-5, "rgb_grain_off": 2e-5,
-          "rgb_grain_on": 5e-5, "probe": 1e-4}
+          "rgb_grain_on": 5e-5, "probe": 1e-4, "resample_cpu": 1e-5,
+          "resample_cv2": 1e-3}
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "grade_phase1": ("vrgdg_tpu_torch/kernels/csrc/grade.cu",
@@ -265,6 +288,11 @@ def determinism(device, config, lut, ref_stats, shape=SPLIT_SHAPE) -> None:
     _say("determinism", rerun="bit-identical", split_0_3_8="bit-identical")
 
 
+def _drain(iterable) -> None:
+    for _ in iterable:
+        pass
+
+
 def _source(count: int, batch: int, height: int, width: int, seed: int):
     """Seeded uint8 (B, H, W, 3) batches for ``count`` frames, cycled from a
     pool of three made in bulk here, before any run is timed."""
@@ -351,7 +379,8 @@ def _stream_runs(label: str, effect, device, card: str, runs,
              median_wall_fps=f"{float(np.median(fps)):.2f}",
              device_ms_per_frame=",".join(f"{v:.4f}" for v in device_ms),
              card=f"'{card}'")
-        breakdown(source, effect, batch, device)
+        breakdown(lambda: _drain(appliers.stream_graded_batches(
+            source, effect, batch_size=batch, device=device)), count)
     torch.cuda.empty_cache()
     return launches
 
@@ -369,19 +398,16 @@ def main_path(device, config, lut, ref_stats, card: str,
                         ("grade_phase1", "grade_phase2"))
 
 
-def breakdown(source, effect, batch: int, device) -> None:
-    """Device time by kernel over one more pass of the main path, from
-    ``torch.profiler``, and the device's busy share of the wall time."""
+def breakdown(run_pass, frames: int) -> None:
+    """Device time by kernel over one more pass of a path (``run_pass()``),
+    from ``torch.profiler``, and the device's busy share of the wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
-
-    from vrgdg_tpu_torch.api import appliers
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA], acc_events=True) as prof:
         started = time.perf_counter()
-        for _ in appliers.stream_graded_batches(
-                source, effect, batch_size=batch, device=device):
-            pass
+        run_pass()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - started) * 1e3
     rows = []
@@ -397,7 +423,6 @@ def breakdown(source, effect, batch: int, device) -> None:
             rows.append((device_us / 1e3, event.count, event.key))
     rows.sort(reverse=True)
     busy_ms = sum(ms for ms, _, _ in rows)
-    frames = sum(b.shape[0] for _, b in source)
     _say("breakdown", frames=frames, wall_ms=f"{wall_ms:.3f}",
          device_busy_ms=f"{busy_ms:.3f}",
          device_busy_share=f"{busy_ms / wall_ms:.4f}")
@@ -683,6 +708,250 @@ def file_phase(device, config, lut) -> None:
              size="640x360", encoder=result["encoder"])
 
 
+def resample_phase(device, reps=10) -> None:
+    """Phase 11: lanczos4 ``resample`` 1080p -> 2160x3840 on the card
+    against the same function on the CPU and against cv2; again with TF32
+    turned on just before the call (the products must force float32
+    themselves); its ms per frame, and the tap-gather form of the same
+    weights timed for comparison."""
+    import cv2
+
+    from vrgdg_tpu_torch.ops import resize
+
+    (src_h, src_w), (dst_h, dst_w) = RESAMPLE
+    frame = np.random.default_rng(21).uniform(
+        0, 1, (1, src_h, src_w, 3)).astype(np.float32)
+    x = torch.from_numpy(frame).to(device)
+    got = resize.resample(x, dst_h, dst_w, "lanczos4")
+    cpu_err = _max_err(got.cpu(), resize.resample(
+        torch.from_numpy(frame), dst_h, dst_w, "lanczos4"))
+    cv2_err = _max_err(got[0].cpu(), torch.from_numpy(cv2.resize(
+        frame[0], (dst_w, dst_h), interpolation=cv2.INTER_LANCZOS4)))
+    _check("lanczos4 card vs CPU", cpu_err, BOUNDS["resample_cpu"])
+    _check("lanczos4 card vs cv2", cv2_err, BOUNDS["resample_cv2"])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with_tf32 = resize.resample(x, dst_h, dst_w, "lanczos4")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    if not torch.equal(with_tf32, got):
+        raise AssertionError("lanczos4 changed with TF32 on: "
+                             f"{_max_err(with_tf32, got)}")
+
+    def taps():
+        y = resize._resample_axis(x, 1, src_h, dst_h, "lanczos4")
+        return resize._resample_axis(y, 2, src_w, dst_w, "lanczos4")
+
+    tap_err = _max_err(taps(), got)
+    ms = _cuda_ms(lambda: resize.resample(x, dst_h, dst_w, "lanczos4"), reps)
+    tap_ms = _cuda_ms(taps, reps)
+    # the two dense products, width first: dw*sw*sh + dh*sh*dw MACs a
+    # channel
+    flop = 2 * 3 * (dst_w * src_w * src_h + dst_h * src_h * dst_w)
+    _say("resample", size=f"{src_h}x{src_w}->{dst_h}x{dst_w}",
+         cpu_err=f"{cpu_err:.3g}<={BOUNDS['resample_cpu']:g}",
+         cv2_err=f"{cv2_err:.3g}<={BOUNDS['resample_cv2']:g}",
+         tf32_on="bit-identical", dense_ms_per_frame=f"{ms:.4f}",
+         dense_tflops=f"{flop / ms / 1e9:.2f}",
+         tap_gather_ms_per_frame=f"{tap_ms:.4f}",
+         tap_gather_err=f"{tap_err:.3g}")
+    del x, got, with_tf32
+    torch.cuda.empty_cache()
+
+
+def _enhance_checks(device, settings) -> None:
+    """Phase 12's checks: a batch split on the card is bit-identical, and
+    a small clip on the card is at most one uint8 level from the CPU path
+    on at most 0.1% of values."""
+    from vrgdg_tpu_torch.jobs import enhancer
+
+    (count, src_h, src_w), (out_w, out_h) = ENHANCE_RUN, ENHANCE_SIZE
+    frames = np.random.default_rng(31).integers(
+        0, 256, (4, src_h, src_w, 3), np.uint8)
+    whole = enhancer.apply_effects_batch(frames, settings, out_h, out_w, 0,
+                                         device=device)
+    split = np.concatenate([
+        enhancer.apply_effects_batch(frames[0:1], settings, out_h, out_w, 0,
+                                     device=device),
+        enhancer.apply_effects_batch(frames[1:4], settings, out_h, out_w, 1,
+                                     device=device)])
+    if not np.array_equal(whole, split):
+        raise AssertionError("enhance step: frames[0:4]@0 != "
+                             "frames[0:1]@0 + frames[1:4]@1")
+    del whole, split
+    small = np.random.default_rng(32).integers(0, 256, (5, 135, 240, 3),
+                                               np.uint8)
+    got = enhancer.apply_effects_batch(small, settings, 270, 480, 3,
+                                       device=device, as_uint8=True)
+    want = enhancer.apply_effects_batch(small, settings, 270, 480, 3,
+                                        device="cpu", as_uint8=True)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    share = float((diff > 0).mean())
+    if got.shape != (5, 270, 480, 3) or diff.max() > 1 or share > 1e-3:
+        raise AssertionError(f"enhance step card vs CPU: shape {got.shape}, "
+                             f"max {diff.max()} levels, {share:.2e} differ")
+    _say("enhance-checks", split_0_1_4="bit-identical",
+         small_clip="5x135x240->270x480", max_level_diff=int(diff.max()),
+         differing_share=f"{share:.2e}<=1e-3")
+
+
+def enhance_path(device, card: str) -> dict:
+    """Phase 12: seeded 1080p uint8 frames streamed through the enhancer's
+    submit/force loop (``enhance_batches``) to 4K at the auto batch;
+    returns the ``film_grain`` launches of the timed passes, which must be
+    one per batch."""
+    from vrgdg_tpu_torch.core.params import EnhancerSettings, auto_batch_size
+    from vrgdg_tpu_torch.jobs import enhancer
+    from vrgdg_tpu_torch.kernels import build
+
+    settings = EnhancerSettings.normalize(ENHANCE)
+    _enhance_checks(device, settings)
+    count, src_h, src_w = ENHANCE_RUN
+    out_w, out_h = ENHANCE_SIZE
+    batch = auto_batch_size(out_w, out_h)
+    source = _source(count, batch, src_h, src_w, 1080)
+
+    def run_pass(stats=None) -> list:
+        shapes = []
+        enhancer.enhance_batches(
+            source, settings, out_h, out_w, device=device, batch_size=batch,
+            write=lambda out: shapes.append(out.shape), stats=stats)
+        return shapes
+
+    run_pass()  # warm-up: builds nothing new, allocates the pinned buffers
+    fps, device_ms, launches = [], [], 0
+    for _ in range(TIMED_PASSES):
+        stats: dict = {}
+        build.reset_launch_counts()
+        started = time.perf_counter()
+        shapes = run_pass(stats)
+        wall = time.perf_counter() - started
+        grain = build.LAUNCHES["film_grain"]
+        frames = sum(s[0] for s in shapes)
+        if frames != count or any(s[1:] != (out_h, out_w, 3) for s in shapes):
+            raise AssertionError(f"enhance path returned {frames} frames of "
+                                 f"shapes {set(shapes)}")
+        if grain != len(source):
+            raise AssertionError(f"enhance path launched film_grain {grain} "
+                                 f"times over {len(source)} batches")
+        launches += grain
+        fps.append(count / wall)
+        device_ms.append(stats["device_ms"] / count)
+    _say("enhance-path", frames=count, size=f"{src_h}x{src_w}->{out_h}x{out_w}",
+         batch=batch, passes=TIMED_PASSES, film_grain_launches_per_pass=grain,
+         batches_per_pass=len(source),
+         wall_fps=",".join(f"{v:.2f}" for v in fps),
+         median_wall_fps=f"{float(np.median(fps)):.2f}",
+         device_ms_per_frame=",".join(f"{v:.4f}" for v in device_ms),
+         card=f"'{card}'")
+    breakdown(run_pass, count)
+    torch.cuda.empty_cache()
+    return {"film_grain": launches}
+
+
+def _write_clip(path: str, frames: int, fps: float, width: int, height: int,
+                seed: int) -> str:
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (width, height))
+    rng = np.random.default_rng(seed)
+    pool = [rng.integers(0, 256, (height, width, 3), np.uint8)
+            for _ in range(4)]
+    for index in range(frames):
+        writer.write(pool[index % 4])
+    writer.release()
+    return path
+
+
+def _decode(path: str) -> np.ndarray:
+    import cv2
+
+    capture = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        frames.append(frame)
+    capture.release()
+    return np.stack(frames)
+
+
+def enhancer_job(device) -> None:
+    """Phase 13: ``render_job`` on a generated 1080p clip to 4K in two
+    segments, then a cancel -> resume on a small clip, decoded byte for
+    byte against an uninterrupted run."""
+    from vrgdg_tpu_torch.jobs import enhancer
+    from vrgdg_tpu_torch.runtime import video_io
+
+    class CancelAfterFirstCommit(enhancer.JobRegistry):
+        # the post-commit update is the only one with stage_seconds_total
+        # and no status
+        def update(self, job_id, **values):
+            super().update(job_id, **values)
+            if "stage_seconds_total" in values and "status" not in values:
+                self.cancel_event(job_id).set()
+
+    def render(registry, folder, clip, settings, resume=False):
+        enhancer.render_job("smoke_job", {"source_path": clip,
+                                          "settings": settings},
+                            resume=resume, registry=registry,
+                            base_folder=folder, device=device)
+        return registry.snapshot("smoke_job")
+
+    frames, fps, (src_w, src_h) = JOB_CLIP
+    settings = {**ENHANCE, "segment_seconds": 5, "preserve_audio": False}
+    with tempfile.TemporaryDirectory() as folder:
+        clip = _write_clip(os.path.join(folder, "clip.mp4"), frames, fps,
+                           src_w, src_h, 41)
+        started = time.perf_counter()
+        final = render(enhancer.JobRegistry(), folder, clip, settings)
+        wall = time.perf_counter() - started
+        if final.get("status") != "complete":
+            raise AssertionError(f"render_job: {final.get('status')}: "
+                                 f"{final.get('error')}")
+        meta = video_io.probe_video(final["output_path"])
+        out_w, out_h = ENHANCE_SIZE
+        if (meta["frame_count"], meta["width"], meta["height"],
+                final["total_segments"]) != (frames, out_w, out_h, 2):
+            raise AssertionError(f"render_job output: {meta}, "
+                                 f"{final['total_segments']} segments")
+        _say("enhancer-job", frames=frames, fps_in=fps,
+             size=f"{src_w}x{src_h}->{meta['width']}x{meta['height']}",
+             segments=final["total_segments"], wall_s=f"{wall:.3f}",
+             wall_fps=f"{frames / wall:.2f}",
+             stage_seconds_total=json.dumps(final["stage_seconds_total"],
+                                            separators=(",", ":")),
+             concat=final["encode_backend"])
+
+    small = {**ENHANCE, "upscale_resolution": "2k", "segment_seconds": 5,
+             "preserve_audio": False}
+    with tempfile.TemporaryDirectory() as folder:
+        clip = _write_clip(os.path.join(folder, "small.mp4"), 60, 10.0, 64,
+                           48, 42)
+        full = render(enhancer.JobRegistry(), os.path.join(folder, "a"),
+                      clip, small)
+        stopped = render(CancelAfterFirstCommit(), os.path.join(folder, "b"),
+                         clip, small)
+        resumed = render(enhancer.JobRegistry(), os.path.join(folder, "b"),
+                         clip, small, resume=True)
+        if (full.get("status"), stopped.get("status"),
+                resumed.get("status")) != ("complete", "canceled", "complete"):
+            raise AssertionError(
+                f"cancel/resume: {full.get('status')}, "
+                f"{stopped.get('status')}, {resumed.get('status')}: "
+                f"{full.get('error')} {resumed.get('error')}")
+        a, b = _decode(full["output_path"]), _decode(resumed["output_path"])
+        if a.shape != (60, 1920, 2560, 3) or not np.array_equal(a, b):
+            raise AssertionError(f"resumed output differs: {a.shape} vs "
+                                 f"{b.shape}")
+        _say("enhancer-resume", frames=60, size="64x48->2560x1920",
+             segments=resumed["total_segments"],
+             canceled_after_segments=1, decoded="byte-identical",
+             concat=resumed["encode_backend"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -729,6 +998,9 @@ def main() -> int:
      probe_launches) = probe(device)
     launches.update(probe_launches)
     file_phase(device, config, lut)
+    resample_phase(device)
+    launches["film_grain"] += enhance_path(device, card)["film_grain"]
+    enhancer_job(device)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

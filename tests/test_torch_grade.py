@@ -259,7 +259,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "vrgdg_tpu_torch.cli, vrgdg_tpu_torch.kernels.grade_cuda, "
             "vrgdg_tpu_torch.kernels.grain_cuda, "
             "vrgdg_tpu_torch.kernels.probe_cuda, "
-            "vrgdg_tpu_torch.tools.probe_transpose\n"
+            "vrgdg_tpu_torch.tools.probe_transpose, vrgdg_tpu_torch.jobs, "
+            "vrgdg_tpu_torch.jobs.enhancer, vrgdg_tpu_torch.jobs.manifest, "
+            "vrgdg_tpu_torch.jobs.prepare_restore, "
+            "vrgdg_tpu_torch.ops.resize, vrgdg_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'vrgdg_tpu' or "
             "m.startswith('vrgdg_tpu.')]\n"

@@ -7,6 +7,7 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
   lut    — 3D .cube LUT on a video
   grain  — seeded film grain on a video
   adjust — 13-slider adjust stack on a video
+  enhance — the Standalone Video Enhancer job (segmented, resumable)
 
 ``--device`` defaults to ``cuda``; on a machine without a card the command
 stops with an error unless ``--device cpu`` is given.
@@ -18,6 +19,7 @@ import argparse
 import json
 import os
 import sys
+import time
 
 
 def _print(result):
@@ -37,6 +39,32 @@ def _add_video_common(p):
     p.add_argument("--preset", default="medium")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default), cuda:N or cpu")
+
+
+def _enhance(args, device) -> None:
+    """Start (or resume) an enhancer job, poll it to its end, print its
+    final status; exit 1 unless it completed."""
+    from .jobs import enhancer as enh
+
+    payload = {"source_path": args.input,
+               "settings": json.loads(args.settings)}
+    snap = enh.start_render(payload, args.resume,
+                            base_folder=args.output_root, device=device)
+    job_id = snap["job_id"]
+    while True:
+        snap = enh.JOBS.snapshot(job_id)
+        status = snap.get("status")
+        sys.stderr.write(
+            f"\r[{status}] {snap.get('progress', 0) * 100:5.1f}% "
+            f"{snap.get('message', '')[:60]:<60}")
+        sys.stderr.flush()
+        if status in {"complete", "failed", "canceled"}:
+            sys.stderr.write("\n")
+            break
+        time.sleep(0.5)
+    _print(snap)
+    if status != "complete":
+        sys.exit(1)
 
 
 def main(argv=None):
@@ -79,6 +107,14 @@ def main(argv=None):
                    help="fused = the two CUDA kernels (needs LUT + color "
                         "match + unsharp enabled)")
 
+    p = sub.add_parser("enhance", help="segmented resumable enhancer job")
+    p.add_argument("input")
+    p.add_argument("--settings", default="{}", help="JSON enhancer settings")
+    p.add_argument("--resume", default="", help="job id to resume")
+    p.add_argument("--output-root", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:N or cpu")
+
     p = sub.add_parser("probe", help="video metadata")
     p.add_argument("input")
 
@@ -94,6 +130,9 @@ def main(argv=None):
         device = appliers.resolve_device(args.device)
     except RuntimeError as exc:
         parser.error(str(exc))
+    if args.command == "enhance":
+        _enhance(args, device)
+        return
     common = dict(batch_size=args.batch_size,
                   preserve_audio=not args.no_audio, encode_crf=args.crf,
                   encode_preset=args.preset, device=device)

@@ -1,0 +1,716 @@
+"""The Standalone Video Enhancer: a background-threaded, segment-checkpointed,
+resumable render engine over torch on one device.
+
+Counterpart of :mod:`vrgdg_tpu.jobs.enhancer`, with the same semantics:
+
+- settings schema + clamping (:class:`vrgdg_tpu_torch.core.params.EnhancerSettings`,
+  ``VRGDG_StandaloneVideoEnhancerNodes.py:142-180``),
+- "fake upscale" output dimensions and auto batch size (``:183-210``),
+- sharpen -> seeded grain effects order (``:278-294``), with per-frame
+  seeding so output is invariant to batch boundaries (``:261-275``),
+- per-segment render loop with ``.partial.mp4`` -> ``os.replace`` commit,
+  manifest fingerprint + pruning, resume/cancel with ``can_resume``
+  (``:513-655``),
+- single-active-job guard, daemon worker thread, snapshot copies that strip
+  live handles (``:20-23, 327-340, 658-711``),
+- preview endpoint math (``:714-753``).
+
+The device step (:func:`_enhance_step`) is lanczos4 resample (two dense
+float32 products per frame, :mod:`vrgdg_tpu_torch.ops.resize`) -> clamp ->
+unsharp -> seeded grain.  The grain goes through
+:func:`~vrgdg_tpu_torch.kernels.grain_cuda.film_grain_kernel`: the
+``film_grain`` CUDA kernel on a card (it raises if it cannot build or
+launch), its plain version on the CPU; both draw the port's one Philox
+stream.  Frames cross as uint8 through pinned host buffers with
+non-blocking copies, and a CUDA event per batch says when its result is on
+the host, so up to ``VRGDG_DISPATCH_DEPTH`` (default 2) batches are in
+flight.  An out-of-memory error surfaces when torch allocates, that is
+when a batch is submitted; both the submit and the force branch bisect
+the batch and keep frame order.
+
+Not here: the multi-card enhancer (:func:`mesh_for_settings` refuses it,
+``render_job_shards``) and the XLA compile cache.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import shutil
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from ..api.appliers import resolve_device
+from ..core.params import EnhancerSettings, auto_batch_size, output_dimensions
+from ..kernels.grain_cuda import film_grain_kernel
+from ..ops.resize import resample
+from ..ops.sharpen import unsharp
+from ..runtime import video_io
+from ..runtime.profiling import StageTimer
+from . import manifest as mf
+
+_DEFAULT_ROOT = os.environ.get(
+    "VRGDG_TPU_OUTPUT", os.path.join(os.getcwd(), "vrgdg_output"))
+
+
+def root_folder(base: str | None = None) -> str:
+    path = os.path.join(base or _DEFAULT_ROOT, "VRGDG_VideoEnhancer")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def preview_folder(base: str | None = None) -> str:
+    path = os.path.join(root_folder(base), "previews")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def jobs_folder(base: str | None = None) -> str:
+    path = os.path.join(root_folder(base), "jobs")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+# --------------------------------------------------------------------------
+# Device pipeline
+# --------------------------------------------------------------------------
+
+def _enhance_step(frames: torch.Tensor, settings: EnhancerSettings,
+                  out_height: int, out_width: int,
+                  frame_start: int) -> torch.Tensor:
+    """Resize (lanczos4) -> unsharp -> seeded grain on ``frames``' device."""
+    out = torch.clamp(resample(frames, out_height, out_width, "lanczos4"),
+                      0.0, 1.0)
+    if settings.sharpen_enabled and settings.sharpen_strength > 0:
+        # use_accelerator maps to the reference's use_gpu border convention
+        # (zero-padded avg_pool on GPU, edge-replicate on CPU) so outputs
+        # are comparable for equal settings.
+        border = "zero" if settings.use_accelerator else "edge"
+        out = unsharp(out, settings.sharpen_strength, border)
+    if settings.grain_enabled and settings.grain_intensity > 0:
+        out = film_grain_kernel(out.contiguous(), settings.grain_intensity,
+                                settings.saturation_mix, settings.seed,
+                                frame_start=frame_start)
+    return out
+
+
+def mesh_for_settings(settings: EnhancerSettings, device="cuda"):
+    """``None`` (one device) when the settings ask for at most one of the
+    visible cards, as the JAX version returns ``None`` on one chip.
+
+    The frame-axis mesh the JAX version builds for more chips is not
+    ported: asking for more than one visible card raises
+    ``NotImplementedError`` rather than running on one card."""
+    want = int(getattr(settings, "data_parallel", 0))
+    spatial = max(1, int(getattr(settings, "spatial_parallel", 1)))
+    if want == 1 and spatial == 1:
+        return None
+    device = torch.device(device)
+    n_visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_use = n_visible if want == 0 else min(want * spatial, n_visible)
+    n_use = (n_use // spatial) * spatial
+    if n_use <= 1:
+        return None
+    raise NotImplementedError(
+        f"data_parallel={want}, spatial_parallel={spatial} asks for {n_use} "
+        f"of the {n_visible} visible cards; the multi-card enhancer is not "
+        "ported yet (ROADMAP.md queue 1, item 3). Set data_parallel to 1 "
+        "to render on one card.")
+
+
+class PendingBatch:
+    """A submitted batch: its result on the host once ``events[1]`` (CUDA)
+    has passed, the count of frames submitted, and the CUDA events around
+    its upload .. download (``None`` on the CPU)."""
+
+    def __init__(self, host: torch.Tensor, count: int, events=None):
+        self.host = host
+        self.count = count
+        self.events = events
+
+    def result(self) -> np.ndarray:
+        if self.events is not None:
+            self.events[1].synchronize()
+        return self.host.numpy()[:self.count]
+
+    def device_ms(self) -> float:
+        """CUDA-event ms from upload to the end of download (after
+        :meth:`result`); 0.0 on the CPU."""
+        if self.events is None:
+            return 0.0
+        return self.events[0].elapsed_time(self.events[1])
+
+
+def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
+                         out_height: int | None = None,
+                         out_width: int | None = None,
+                         frame_start: int = 0, *, device="cuda",
+                         as_uint8: bool = False) -> PendingBatch:
+    """Queue the device step on ``device`` WITHOUT waiting for it.
+
+    ``frames`` is a BHWC uint8 (or float32 [0,1]) host batch.  On CUDA it
+    is copied into a pinned buffer, uploaded, dequantized, enhanced,
+    quantized when ``as_uint8`` (4x less to download; bit-identical to
+    quantizing on the host) and downloaded into a pinned buffer, all
+    queued on the current stream; :meth:`PendingBatch.result` waits for
+    it.  On the CPU the step runs at once."""
+    device = resolve_device(device)
+    if out_height is None:
+        out_height = int(frames.shape[1])
+    if out_width is None:
+        out_width = int(frames.shape[2])
+    count = int(frames.shape[0])
+    host = torch.from_numpy(np.ascontiguousarray(frames))
+
+    def step(on_device: torch.Tensor) -> torch.Tensor:
+        out = _enhance_step(video_io.dequantize_on_device(on_device),
+                            settings, int(out_height), int(out_width),
+                            int(frame_start))
+        return video_io.quantize_on_device(out) if as_uint8 else out
+
+    if device.type != "cuda":
+        return PendingBatch(step(host.to(device)).cpu(), count)
+    with torch.cuda.device(device):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        start.record()
+        out = step(pinned.to(device, non_blocking=True))
+        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host_out.copy_(out, non_blocking=True)
+        end.record()
+    return PendingBatch(host_out, count, (start, end))
+
+
+def apply_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
+                        out_height: int | None = None,
+                        out_width: int | None = None,
+                        frame_start: int = 0, *, device="cuda",
+                        as_uint8: bool = False) -> np.ndarray:
+    """Host wrapper: BHWC host batch in, enhanced BHWC host batch out
+    (synchronous; see :func:`submit_effects_batch`)."""
+    return submit_effects_batch(frames, settings, out_height, out_width,
+                                frame_start, device=device,
+                                as_uint8=as_uint8).result()
+
+
+def _is_oom(exc: BaseException) -> bool:
+    return (isinstance(exc, torch.cuda.OutOfMemoryError)
+            or "out of memory" in str(exc).lower())
+
+
+def process_with_retry(frames: np.ndarray, settings: EnhancerSettings,
+                       out_height: int, out_width: int,
+                       frame_start: int, *, device="cuda",
+                       as_uint8: bool = False) -> tuple[np.ndarray, int]:
+    """Bisect the batch on device OOM, like the reference's CUDA retry
+    (``VRGDG_StandaloneVideoEnhancerNodes.py:297-308``); returns
+    ``(frames, smallest_successful_batch)``."""
+    try:
+        out = apply_effects_batch(frames, settings, out_height, out_width,
+                                  frame_start, device=device,
+                                  as_uint8=as_uint8)
+        return out, len(frames)
+    except RuntimeError as exc:
+        if not _is_oom(exc) or len(frames) <= 1:
+            raise
+        midpoint = max(1, len(frames) // 2)
+        left, left_n = process_with_retry(frames[:midpoint], settings,
+                                          out_height, out_width, frame_start,
+                                          device=device, as_uint8=as_uint8)
+        right, right_n = process_with_retry(frames[midpoint:], settings,
+                                            out_height, out_width,
+                                            frame_start + midpoint,
+                                            device=device, as_uint8=as_uint8)
+        return np.concatenate([left, right], axis=0), min(left_n, right_n)
+
+
+# --------------------------------------------------------------------------
+# Job registry
+# --------------------------------------------------------------------------
+
+class JobRegistry:
+    """Thread-safe job state store with cancel events
+    (``VRGDG_StandaloneVideoEnhancerNodes.py:20-23, 327-340``)."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._jobs: dict[str, dict] = {}
+        self._cancel: dict[str, threading.Event] = {}
+
+    def update(self, job_id: str, **values) -> None:
+        with self._lock:
+            job = self._jobs.setdefault(job_id, {"job_id": job_id})
+            job.update(values)
+            job["updated_at"] = time.time()
+
+    def snapshot(self, job_id: str) -> dict:
+        with self._lock:
+            job = dict(self._jobs.get(job_id) or {})
+        job.pop("thread", None)
+        job.pop("process", None)
+        return job
+
+    def all_snapshots(self) -> list[dict]:
+        with self._lock:
+            ids = list(self._jobs)
+        return [self.snapshot(job_id) for job_id in ids]
+
+    def cancel_event(self, job_id: str) -> threading.Event:
+        with self._lock:
+            return self._cancel.setdefault(job_id, threading.Event())
+
+    def get_cancel(self, job_id: str) -> threading.Event | None:
+        with self._lock:
+            return self._cancel.get(job_id)
+
+    def active_job(self, excluding: str = "") -> dict | None:
+        with self._lock:
+            for job in self._jobs.values():
+                if (job.get("job_id") != excluding
+                        and job.get("status") in {"queued", "running",
+                                                  "encoding"}):
+                    return dict(job)
+        return None
+
+    def attach(self, job_id: str, key: str, value) -> None:
+        with self._lock:
+            self._jobs.setdefault(job_id, {"job_id": job_id})[key] = value
+
+
+JOBS = JobRegistry()
+
+
+# --------------------------------------------------------------------------
+# Render engine
+# --------------------------------------------------------------------------
+
+def _force_entry(in_flight: deque, settings, out_h: int, out_w: int, device,
+                 smallest_batch: int, timer, write, stats) -> int:
+    """Wait for the oldest in-flight batch and encode it.
+
+    A device OOM that surfaces here is handled like one at submit time:
+    the retained host copy goes through the synchronous bisection."""
+    (pending, padded, chunk_n, start) = in_flight.popleft()
+    with timer.stage("device"):
+        try:
+            enhanced = pending.result()
+            ok_batch = padded.shape[0]
+            stats["device_ms"] += pending.device_ms()
+        except RuntimeError as exc:
+            if not _is_oom(exc):
+                raise
+            enhanced, ok_batch = process_with_retry(
+                padded, settings, out_h, out_w, start, device=device,
+                as_uint8=True)
+    stats["batches"] += 1
+    with timer.stage("encode"):
+        write(enhanced[:chunk_n])
+    return max(1, min(smallest_batch, ok_batch))
+
+
+def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
+                    settings: EnhancerSettings, out_h: int, out_w: int, *,
+                    device, batch_size: int,
+                    write: Callable[[np.ndarray], object],
+                    timer: StageTimer | None = None,
+                    cancel_event: threading.Event | None = None,
+                    on_batch: Callable[[int, int, int], object] | None = None,
+                    stats: dict | None = None) -> tuple[int, int]:
+    """Enhance ``(first_frame_index, uint8 (B, H, W, 3))`` host batches and
+    hand the uint8 results to ``write`` in frame order; returns
+    ``(frames_done, smallest_batch)``.
+
+    The device is fed in chunks of the current OOM-proven batch size, so
+    each batch triggers at most one bisection per job (the reference reads
+    ``min(smallest_batch, remaining)`` per step,
+    ``VRGDG_StandaloneVideoEnhancerNodes.py:410-418``).  Short chunks are
+    padded to that size by repeating the last frame, then trimmed.  Chunks
+    flow through a submit/force FIFO of ``VRGDG_DISPATCH_DEPTH`` (default
+    2): upload and compute of one batch overlap download and encode of the
+    one before; order and bytes are unchanged.  On an OOM at submit, the
+    older chunks in flight are written first, then this one is bisected.
+
+    ``on_batch(count, frames_done, smallest_batch)`` runs after each
+    decoded batch is submitted; ``stats`` (optional) receives ``batches``
+    and ``device_ms`` (CUDA-event time, upload to download, summed)."""
+    timer = timer or StageTimer()
+    stats = {} if stats is None else stats
+    stats.update(batches=0, device_ms=0.0)
+    depth = max(1, int(os.environ.get("VRGDG_DISPATCH_DEPTH") or 2))
+    smallest_batch = max(1, int(batch_size))
+    frames_done = 0
+    in_flight: deque = deque()
+
+    def force() -> None:
+        nonlocal smallest_batch
+        smallest_batch = _force_entry(in_flight, settings, out_h, out_w,
+                                      device, smallest_batch, timer, write,
+                                      stats)
+
+    iterator = iter(batches)
+    while True:
+        with timer.stage("decode"):
+            item = next(iterator, None)
+        if item is None:
+            break
+        frame_index, frames = item
+        if cancel_event is not None and cancel_event.is_set():
+            raise InterruptedError("Render canceled.")
+        count = frames.shape[0]
+        offset = 0
+        while offset < count:
+            chunk = frames[offset:offset + smallest_batch]
+            chunk_n = chunk.shape[0]
+            padded = chunk
+            if chunk_n < smallest_batch:
+                filler = np.repeat(chunk[-1:], smallest_batch - chunk_n,
+                                   axis=0)
+                padded = np.concatenate([chunk, filler], axis=0)
+            submit_oom = False
+            with timer.stage("device"):
+                try:
+                    pending = submit_effects_batch(
+                        padded, settings, out_h, out_w, frame_index + offset,
+                        device=device, as_uint8=True)
+                    in_flight.append((pending, padded, chunk_n,
+                                      frame_index + offset))
+                except RuntimeError as exc:
+                    if not _is_oom(exc):
+                        raise
+                    submit_oom = True
+            if submit_oom:
+                # Outside the device stage: _force_entry and the write open
+                # their own stages, and StageTimer is a plain accumulator.
+                while in_flight:
+                    force()
+                with timer.stage("device"):
+                    enhanced, ok_batch = process_with_retry(
+                        padded, settings, out_h, out_w, frame_index + offset,
+                        device=device, as_uint8=True)
+                smallest_batch = max(1, min(smallest_batch, ok_batch))
+                stats["batches"] += 1
+                with timer.stage("encode"):
+                    write(enhanced[:chunk_n])
+                offset += chunk_n
+                continue
+            if len(in_flight) >= depth:
+                force()
+            offset += chunk_n
+        frames_done += count
+        if on_batch is not None:
+            on_batch(count, frames_done, smallest_batch)
+    while in_flight:  # drain the dispatch pipeline
+        force()
+    return frames_done, smallest_batch
+
+
+def _render_segment(source_path: str, segment_path: str, start_frame: int,
+                    end_frame: int, metadata: dict,
+                    settings: EnhancerSettings, job_id: str,
+                    cancel_event: threading.Event,
+                    registry: JobRegistry,
+                    device="cuda") -> tuple[int, int, dict]:
+    out_w, out_h = output_dimensions(metadata["width"], metadata["height"],
+                                     settings.upscale_resolution)
+    batch = settings.batch_size or auto_batch_size(out_w, out_h)
+    started = time.time()
+    timer = StageTimer()
+
+    def progress(count: int, frames_done: int, smallest_batch: int) -> None:
+        current = int(registry.snapshot(job_id).get(
+            "frames_processed") or 0) + count
+        total = max(1, int(metadata["frame_count"]))
+        elapsed = max(1e-6, time.time() - started)
+        registry.update(
+            job_id,
+            frames_processed=current,
+            progress=min(0.94, current / total * 0.94),
+            batch_size=smallest_batch,
+            mesh_devices=1,
+            fps_per_chip=round(frames_done / elapsed, 3),
+            stage_seconds=timer.seconds(),
+            message=(f"Upscaling and enhancing frames "
+                     f"{current:,}/{total:,}"),
+        )
+
+    # Parallel chunked decode is opt-in (decode_workers > 1): chunk seeks
+    # can land off-by-one on some OpenCV backends for open-GOP/B-frame/
+    # VFR sources (see ParallelVideoReader), so "auto" (0) is sequential.
+    workers = int(getattr(settings, "decode_workers", 0)) or 1
+    writer = video_io.VideoWriter(segment_path, metadata["fps"], out_w, out_h)
+    try:
+        if workers > 1:
+            reader = video_io.ParallelVideoReader(
+                source_path, batch_size=batch, start_frame=start_frame,
+                end_frame=end_frame, workers=workers, as_float=False)
+        else:
+            reader = video_io.VideoReader(source_path, batch_size=batch,
+                                          start_frame=start_frame,
+                                          end_frame=end_frame)
+        # PrefetchingReader.close() stops and joins the pump thread before
+        # releasing the capture, so it owns reader shutdown on every path.
+        with video_io.PrefetchingReader(reader) as prefetch:
+            frames_done, smallest_batch = enhance_batches(
+                prefetch, settings, out_h, out_w, device=device,
+                batch_size=batch, write=writer.write_array, timer=timer,
+                cancel_event=cancel_event, on_batch=progress)
+        if frames_done <= 0:
+            raise RuntimeError(
+                "The source video ended before this segment could be rendered.")
+    finally:
+        writer.close()
+    return frames_done, smallest_batch, timer.seconds()
+
+
+def render_job(job_id: str, payload: dict, resume: bool = False,
+               registry: JobRegistry = JOBS, base_folder: str | None = None,
+               device="cuda"):
+    """Full job flow (``VRGDG_StandaloneVideoEnhancerNodes.py:513-655``) on
+    ``device``; a failure lands in the job's status, not in an
+    exception."""
+    cancel_event = registry.cancel_event(job_id)
+    job_folder = os.path.join(jobs_folder(base_folder), job_id)
+    segments_folder = os.path.join(job_folder, "segments")
+    os.makedirs(segments_folder, exist_ok=True)
+    try:
+        device = resolve_device(device)
+        source_path = video_io.normalize_video_path(payload.get("source_path"))
+        metadata = video_io.probe_video(source_path)
+        settings = EnhancerSettings.normalize(payload.get("settings"))
+        out_w, out_h = output_dimensions(metadata["width"],
+                                         metadata["height"],
+                                         settings.upscale_resolution)
+        fingerprint = mf.settings_fingerprint(source_path, settings.to_dict(),
+                                              metadata["frame_count"])
+        manifest = mf.read_manifest(job_folder) if resume else {}
+        if manifest and manifest.get("fingerprint") != fingerprint:
+            raise ValueError(
+                "The source video or enhancement settings changed, so this "
+                "job cannot resume.")
+
+        mesh_for_settings(settings, device)
+        frames_per_segment = max(1, int(round(
+            float(metadata["fps"]) * settings.segment_seconds)))
+        total_segments = max(1, int(math.ceil(
+            metadata["frame_count"] / frames_per_segment)))
+        completed = mf.prune_completed(manifest.get("completed_segments"),
+                                       total_segments, segments_folder)
+        completed_frames = sum(
+            max(0, min(metadata["frame_count"],
+                       (i + 1) * frames_per_segment) - i * frames_per_segment)
+            for i in completed)
+
+        manifest = {
+            "version": 1,
+            "job_id": job_id,
+            "fingerprint": fingerprint,
+            "source_path": source_path,
+            "settings": settings.to_dict(),
+            "metadata": metadata,
+            "completed_segments": sorted(completed),
+        }
+        mf.write_manifest(job_folder, manifest)
+        registry.update(
+            job_id, status="running", stage="enhancing",
+            source_path=source_path, metadata=metadata,
+            settings=settings.to_dict(), output_width=out_w,
+            output_height=out_h, frames_processed=completed_frames,
+            total_frames=metadata["frame_count"],
+            segment_index=len(completed), total_segments=total_segments,
+            progress=(completed_frames / max(1, metadata["frame_count"])) * 0.94,
+            can_resume=False, error="", device=str(device),
+            message=f"Starting {out_w}×{out_h} batched enhancement…",
+        )
+
+        # ``stage_seconds`` in the live status is the current segment's
+        # split (reset per checkpoint); ``stage_seconds_total`` accumulates
+        # across the whole job so the final snapshot carries the full
+        # decode/device/encode breakdown.
+        stage_totals: dict[str, float] = {}
+        for segment_index in range(total_segments):
+            if segment_index in completed:
+                continue
+            if cancel_event.is_set():
+                raise InterruptedError("Render canceled.")
+            start = segment_index * frames_per_segment
+            end = min(metadata["frame_count"], start + frames_per_segment)
+            segment_path = os.path.join(
+                segments_folder, mf.segment_file_name(segment_index))
+            partial_path = segment_path + ".partial.mp4"
+            if os.path.isfile(partial_path):
+                os.remove(partial_path)
+            registry.update(
+                job_id, segment_index=segment_index + 1,
+                message=(f"Enhancing checkpoint {segment_index + 1}/"
+                         f"{total_segments}"))
+            frames_done, _, segment_stages = _render_segment(
+                source_path, partial_path, start, end, metadata, settings,
+                job_id, cancel_event, registry, device=device)
+            os.replace(partial_path, segment_path)
+            completed.add(segment_index)
+            manifest["completed_segments"] = sorted(completed)
+            mf.write_manifest(job_folder, manifest)
+            for stage, seconds in segment_stages.items():
+                stage_totals[stage] = round(
+                    stage_totals.get(stage, 0.0) + seconds, 6)
+            registry.update(
+                job_id,
+                frames_processed=min(metadata["frame_count"],
+                                     start + frames_done),
+                stage_seconds_total=dict(stage_totals),
+                segment_index=segment_index + 1)
+
+        segment_paths = [
+            os.path.join(segments_folder, mf.segment_file_name(i))
+            for i in range(total_segments)
+        ]
+        stem = os.path.splitext(settings.output_name)[0] or "enhanced_video"
+        output_name = f"{stem}_{time.strftime('%Y%m%d_%H%M%S')}.mp4"
+        output_path = os.path.join(root_folder(base_folder), output_name)
+        registry.update(job_id, stage="encoding", progress=0.95,
+                        message="Joining segments and restoring audio…")
+        concat_started = time.time()
+        concat_result = video_io.concat_videos(
+            segment_paths, output_path, metadata["fps"], out_w, out_h,
+            source_audio_path=source_path,
+            preserve_audio=settings.preserve_audio,
+            crf=settings.encode_crf, preset=settings.encode_preset,
+            cancel_event=cancel_event,
+            log_path=os.path.join(job_folder, "ffmpeg.log"))
+        stage_totals["concat"] = round(time.time() - concat_started, 6)
+        output_metadata = video_io.probe_video(output_path)
+        manifest.update(output_path=output_path, status="complete",
+                        completed_segments=[], checkpoints_cleaned=True)
+        mf.write_manifest(job_folder, manifest)
+        shutil.rmtree(segments_folder, ignore_errors=True)
+        registry.update(
+            job_id, status="complete", stage="complete", progress=1.0,
+            frames_processed=metadata["frame_count"],
+            output_path=output_path, output_metadata=output_metadata,
+            encode_backend=concat_result["backend"],
+            audio_preserved=concat_result["audio"],
+            stage_seconds_total=dict(stage_totals),
+            checkpoints_cleaned=True, can_resume=False,
+            message="Enhancement complete.")
+    except InterruptedError as exc:
+        registry.update(job_id, status="canceled", stage="canceled",
+                        can_resume=True, error="", message=str(exc))
+    except Exception as exc:  # noqa: BLE001 — the job thread's boundary
+        registry.update(job_id, status="failed", stage="failed",
+                        can_resume=True, error=str(exc),
+                        message=f"Render failed: {exc}")
+
+
+def start_render(payload: dict, resume_job_id: str = "",
+                 registry: JobRegistry = JOBS,
+                 base_folder: str | None = None, device="cuda") -> dict:
+    """Queue a render job on a daemon thread with the reference's
+    single-active-job and resume-rehydration semantics
+    (``VRGDG_StandaloneVideoEnhancerNodes.py:658-711``).  A CUDA
+    ``device`` without a visible card raises here."""
+    device = resolve_device(device)
+    resume_job_id = str(resume_job_id or "").strip()
+    active = registry.active_job(excluding=resume_job_id)
+    if active:
+        raise ValueError(
+            f"Enhancement job {active.get('job_id')} is already running. "
+            "Wait for it to finish or cancel it first.")
+    if resume_job_id:
+        job_id = resume_job_id
+        existing = registry.snapshot(job_id)
+        if existing.get("status") in {"running", "encoding"}:
+            raise ValueError("That enhancement job is already running.")
+        if not existing or not (payload or {}).get("source_path"):
+            # job lost from memory (process restart) or the caller sent no
+            # payload: rehydrate from the on-disk manifest
+            job_folder = os.path.join(jobs_folder(base_folder), job_id)
+            manifest = mf.read_manifest(job_folder)
+            if not manifest:
+                raise ValueError(
+                    "The requested render checkpoint was not found.")
+            payload = {"source_path": manifest.get("source_path"),
+                       "settings": manifest.get("settings")}
+    else:
+        job_id = (f"enhancer_{time.strftime('%Y%m%d_%H%M%S')}_"
+                  f"{uuid.uuid4().hex[:8]}")
+    cancel = registry.cancel_event(job_id)
+    cancel.clear()
+    registry.update(job_id, status="queued", stage="queued", progress=0.0,
+                    created_at=time.time(), can_resume=False,
+                    message="Queued…")
+    thread = threading.Thread(
+        target=render_job, args=(job_id, payload, bool(resume_job_id)),
+        kwargs={"registry": registry, "base_folder": base_folder,
+                "device": device},
+        daemon=True, name=f"VRGDGTorchEnhancer-{job_id}")
+    registry.attach(job_id, "thread", thread)
+    thread.start()
+    return registry.snapshot(job_id)
+
+
+def cancel_render(job_id: str, registry: JobRegistry = JOBS) -> dict:
+    event = registry.get_cancel(job_id)
+    if event is None:
+        raise ValueError("Enhancement job was not found.")
+    event.set()
+    return registry.snapshot(job_id)
+
+
+def preview_frame(source_path: str, timestamp: float, settings,
+                  base_folder: str | None = None, device="cuda") -> dict:
+    """Render a before/after PNG pair for one frame
+    (``VRGDG_StandaloneVideoEnhancerNodes.py:714-753``)."""
+    import cv2
+
+    settings = (settings if isinstance(settings, EnhancerSettings)
+                else EnhancerSettings.normalize(settings))
+    source_path = video_io.normalize_video_path(source_path)
+    metadata = video_io.probe_video(source_path)
+    capture = cv2.VideoCapture(source_path)
+    try:
+        # ms-accurate seek first, then fall back to the first frame
+        seeks = ((cv2.CAP_PROP_POS_MSEC,
+                  max(0.0, float(timestamp)) * 1000.0),
+                 (cv2.CAP_PROP_POS_FRAMES, 0.0))
+        for prop, position in seeks:
+            capture.set(prop, position)
+            ok, frame = capture.read()
+            if ok:
+                break
+        else:
+            raise RuntimeError("Could not decode the selected preview frame.")
+    finally:
+        capture.release()
+    frame_index = max(0, min(metadata["frame_count"] - 1,
+                             int(round(float(timestamp) * metadata["fps"]))))
+    out_w, out_h = output_dimensions(metadata["width"], metadata["height"],
+                                     settings.upscale_resolution)
+    batch = video_io.frames_to_array([frame])
+    enhanced = apply_effects_batch(batch, settings, out_h, out_w, frame_index,
+                                   device=device)
+    after = video_io.array_to_frames(enhanced)[0]
+
+    token = f"preview_{uuid.uuid4().hex}"
+    before_path = os.path.join(preview_folder(base_folder),
+                               f"{token}_before.png")
+    after_path = os.path.join(preview_folder(base_folder),
+                              f"{token}_after.png")
+    if not cv2.imwrite(before_path, frame) or not cv2.imwrite(after_path, after):
+        raise RuntimeError("Could not save the preview images.")
+    return {
+        "before_path": before_path,
+        "after_path": after_path,
+        "timestamp": max(0.0, float(timestamp)),
+        "frame_index": frame_index,
+        "metadata": metadata,
+        "output_width": out_w,
+        "output_height": out_h,
+    }

@@ -1,17 +1,20 @@
-"""Host-side media I/O: probing, batched decode, codec-fallback encode, and
-the uint8 <-> float conversions on the device.
+"""Host-side media I/O: probing, batched decode (sequential or parallel),
+codec-fallback encode, segment concatenation, and the uint8 <-> float
+conversions on the device.
 
 Counterpart of the parts of :mod:`vrgdg_tpu.runtime.video_io` that the
-appliers use.  OpenCV handles decode/encode on the CPU and is imported
-lazily, so the package imports (and the in-memory main path runs) on a
-machine without it.  Frames cross the host/device boundary as uint8 both
-ways (4x fewer bytes than float32); :func:`dequantize_on_device` and
-:func:`quantize_on_device` convert on the device.
+appliers and the enhancer job use.  OpenCV handles decode/encode on the
+CPU and is imported lazily, so the package imports (and the in-memory
+main path runs) on a machine without it.  Frames cross the host/device
+boundary as uint8 both ways (4x fewer bytes than float32);
+:func:`dequantize_on_device` and :func:`quantize_on_device` convert on the
+device.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import queue
 import shutil
@@ -91,6 +94,13 @@ def probe_video(path) -> dict:
         "codec": codec, "has_audio": media_has_audio(path),
         "size": int(stat.st_size), "mtime": float(stat.st_mtime),
     }
+
+
+def frames_to_array(frames: list[np.ndarray]) -> np.ndarray:
+    """BGR uint8 frame list -> BHWC float32 RGB in [0,1]."""
+    stacked = np.stack(frames, axis=0)
+    rgb = stacked[..., ::-1]  # BGR -> RGB
+    return np.ascontiguousarray(rgb, dtype=np.float32) / 255.0
 
 
 def array_to_frames(array: np.ndarray) -> list[np.ndarray]:
@@ -232,6 +242,10 @@ class VideoWriter:
             self._writer.write(frame)
             self.frames_written += 1
 
+    def write_bgr(self, frame: np.ndarray):
+        self._writer.write(frame)
+        self.frames_written += 1
+
     def close(self):
         if self._writer is not None:
             self._writer.release()
@@ -264,6 +278,298 @@ def write_video_with_fallback(path, fps: float, width: int, height: int,
         with contextlib.suppress(OSError):
             os.remove(path)
     raise RuntimeError(f"All codecs failed for {path}: {last_error}")
+
+
+def concat_videos(segment_paths: list[str], output_path: str, fps: float,
+                  width: int, height: int, source_audio_path: str | None = None,
+                  preserve_audio: bool = True, crf: int = 18,
+                  preset: str = "medium",
+                  cancel_event: threading.Event | None = None,
+                  log_path: str | None = None) -> dict:
+    """Join rendered segments into the final video.
+
+    With ffmpeg available this is the reference's concat-demuxer + libx264 +
+    audio-remux command (``VRGDG_StandaloneVideoEnhancerNodes.py:444-510``);
+    without it, the native MP4 stream-copy concatenator joins the segments
+    losslessly in seconds (no audio), and only if that is unavailable or
+    refuses the inputs are segments re-encoded through the cv2 codec
+    chain.  Returns ``{"backend", "audio"}``.
+    """
+    ffmpeg = find_ffmpeg()
+    if ffmpeg is not None:
+        return _concat_ffmpeg(ffmpeg, segment_paths, output_path,
+                              source_audio_path if preserve_audio else None,
+                              crf, preset, cancel_event, log_path)
+
+    if cancel_event is not None and cancel_event.is_set():
+        raise InterruptedError("Render canceled.")
+    if all(os.path.splitext(p)[1].lower() in {".mp4", ".m4v", ".mov"}
+           for p in segment_paths):
+        try:
+            from ..native import concat_mp4_stream_copy
+
+            concat_mp4_stream_copy([os.path.abspath(p)
+                                    for p in segment_paths],
+                                   os.path.abspath(output_path))
+            if validate_video_readable(output_path):
+                return {"backend": "native:mp4concat", "audio": False}
+            with contextlib.suppress(OSError):
+                os.remove(output_path)
+        except Exception as exc:  # noqa: BLE001 — any refusal -> re-encode
+            print(f"[vrgdg_tpu_torch] native mp4 concat unavailable "
+                  f"({exc}); re-encoding segments.", flush=True)
+
+    import cv2
+
+    writer = VideoWriter(output_path, fps, width, height)
+    try:
+        for segment in segment_paths:
+            capture = cv2.VideoCapture(segment)
+            try:
+                while True:
+                    if cancel_event is not None and cancel_event.is_set():
+                        raise InterruptedError("Render canceled.")
+                    ok, frame = capture.read()
+                    if not ok:
+                        break
+                    if frame.shape[1] != width or frame.shape[0] != height:
+                        frame = cv2.resize(frame, (width, height),
+                                           interpolation=cv2.INTER_LANCZOS4)
+                    writer.write_bgr(frame)
+            finally:
+                capture.release()
+    finally:
+        writer.close()
+    if not validate_video_readable(output_path):
+        raise RuntimeError(f"Could not produce a readable final video at "
+                           f"{output_path}.")
+    return {"backend": f"cv2:{writer.codec}", "audio": False}
+
+
+def _concat_ffmpeg(ffmpeg, segment_paths, output_path, audio_source,
+                   crf, preset, cancel_event, log_path) -> dict:
+    folder = os.path.dirname(os.path.abspath(segment_paths[0]))
+    concat_list = os.path.join(folder, "segments.txt")
+    with open(concat_list, "w", encoding="utf-8") as handle:
+        for path in segment_paths:
+            escaped = os.path.abspath(path).replace("\\", "/").replace("'", "'\\''")
+            handle.write(f"file '{escaped}'\n")
+    command = [ffmpeg, "-y", "-f", "concat", "-safe", "0", "-i", concat_list]
+    if audio_source:
+        command += ["-i", audio_source, "-map", "0:v:0", "-map", "1:a?"]
+    else:
+        command += ["-map", "0:v:0", "-an"]
+    command += ["-c:v", "libx264", "-preset", str(preset), "-crf", str(crf),
+                "-pix_fmt", "yuv420p"]
+    if audio_source:
+        command += ["-c:a", "aac", "-b:a", "192k"]
+    command += ["-movflags", "+faststart", "-shortest", output_path]
+
+    log_path = log_path or os.path.join(folder, "ffmpeg.log")
+    with open(log_path, "w", encoding="utf-8", errors="replace") as log:
+        process = subprocess.Popen(command, stdout=subprocess.DEVNULL,
+                                   stderr=log, text=True, errors="replace")
+        while process.poll() is None:
+            if cancel_event is not None and cancel_event.wait(0.25):
+                process.terminate()
+                try:
+                    process.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    process.kill()
+                raise InterruptedError("Render canceled.")
+    if process.returncode != 0 or not os.path.isfile(output_path):
+        tail = ""
+        with contextlib.suppress(OSError):
+            with open(log_path, "r", encoding="utf-8", errors="replace") as log:
+                tail = log.read()[-1800:]
+        raise RuntimeError(f"FFmpeg could not create the final video: {tail}")
+    return {"backend": "ffmpeg:libx264", "audio": bool(audio_source)}
+
+
+class ParallelVideoReader:
+    """Multi-threaded chunked decoder: N worker threads each own a
+    ``cv2.VideoCapture`` and decode interleaved frame chunks (cv2 releases
+    the GIL during decode), while the consumer reassembles batches in
+    order.  The enhancer uses it when ``decode_workers`` >= 2.
+
+    Each chunk seek re-decodes from the previous keyframe, so chunks
+    should span several GOPs, and on hosts with few cores the seek
+    redundancy can lose to the sequential reader.  Open-GOP/B-frame/VFR
+    sources can seek off-by-one on some OpenCV backends, so with
+    ``verify_seeks`` (default on) each worker decodes one pre-frame before
+    its chunk and the consumer checks that it byte-matches the previous
+    chunk's last frame.  That catches chunk-to-chunk seek inconsistency;
+    a bias that shifted every seek, chunk 0's included, by the same
+    amount would pass, so sources suspected of that belong on the
+    sequential reader.
+
+    Iterating yields ``(first_frame_index, batch)`` like
+    :class:`VideoReader`: uint8 batches, or float32 [0,1] with
+    ``as_float``.
+    """
+
+    def __init__(self, path, batch_size: int = 8, start_frame: int = 0,
+                 end_frame: int | None = None, workers: int = 2,
+                 chunk_batches: int = 4, as_float: bool = True,
+                 verify_seeks: bool = True):
+        import cv2
+
+        self.path = normalize_video_path(path)
+        self.batch_size = max(1, int(batch_size))
+        self.as_float = bool(as_float)
+        self.start_frame = max(0, int(start_frame))
+        if end_frame is None:
+            probe = cv2.VideoCapture(self.path)
+            try:
+                end_frame = int(probe.get(cv2.CAP_PROP_FRAME_COUNT) or 0)
+            finally:
+                probe.release()
+        self.end_frame = int(end_frame)
+        self.workers = max(1, int(workers))
+        self.verify_seeks = bool(verify_seeks)
+        self.chunk_frames = self.batch_size * max(1, int(chunk_batches))
+        self._stop = threading.Event()
+        self._results: dict[int, list | None] = {}
+        self._error: BaseException | None = None
+        self._lock = threading.Lock()
+        self._ready = threading.Condition(self._lock)
+        self._chunks = list(range(self.start_frame, self.end_frame,
+                                  self.chunk_frames))
+        self._next_chunk = 0
+        self._threads = [threading.Thread(target=self._worker, daemon=True)
+                         for _ in range(min(self.workers,
+                                            max(1, len(self._chunks))))]
+        for thread in self._threads:
+            thread.start()
+
+    def _claim(self) -> int | None:
+        with self._lock:
+            if self._next_chunk >= len(self._chunks):
+                return None
+            index = self._next_chunk
+            self._next_chunk += 1
+            return index
+
+    def _worker(self):
+        import cv2
+
+        index = None
+        capture = None
+        try:
+            capture = cv2.VideoCapture(self.path)
+            if not capture.isOpened():
+                raise RuntimeError(f"Could not open video: {self.path}")
+            while not self._stop.is_set():
+                index = self._claim()
+                if index is None:
+                    return
+                chunk_start = self._chunks[index]
+                chunk_end = min(self.end_frame,
+                                chunk_start + self.chunk_frames)
+                # With verification on, land one frame early: the extra
+                # decoded frame must equal the previous chunk's last frame
+                # or the backend's seek is not frame-accurate here. The
+                # pre-frame sits in the same GOP the seek re-decodes
+                # anyway, so it costs one frame of work per chunk.
+                probe_hash = None
+                if self.verify_seeks and index > 0:
+                    capture.set(cv2.CAP_PROP_POS_FRAMES, chunk_start - 1)
+                    ok, probe = capture.read()
+                    if ok:
+                        probe_hash = hashlib.sha1(probe.tobytes()).digest()
+                    else:  # pre-frame unreadable: fall back to direct seek
+                        capture.set(cv2.CAP_PROP_POS_FRAMES, chunk_start)
+                else:
+                    capture.set(cv2.CAP_PROP_POS_FRAMES, chunk_start)
+                frames = []
+                for _ in range(chunk_end - chunk_start):
+                    ok, frame = capture.read()
+                    if not ok:
+                        break
+                    frames.append(frame)
+                with self._ready:
+                    self._results[index] = (probe_hash, frames)
+                    self._ready.notify_all()
+                index = None
+                # simple backpressure: don't run more than ~2 chunks/worker
+                # ahead of the consumer
+                while not self._stop.is_set():
+                    with self._ready:
+                        if len(self._results) <= 2 * len(self._threads):
+                            break
+                    self._stop.wait(0.02)
+        except BaseException as exc:
+            # publish the failure so the consumer raises instead of
+            # hanging on the never-delivered chunk
+            with self._ready:
+                self._error = exc
+                if index is not None:
+                    self._results[index] = None
+                self._ready.notify_all()
+        finally:
+            if capture is not None:
+                capture.release()
+
+    def __iter__(self) -> Iterator[tuple[int, np.ndarray]]:
+        convert = frames_to_array if self.as_float else frames_to_rgb_u8
+        pending: list[np.ndarray] = []
+        position = self.start_frame
+        last_hash: bytes | None = None
+        for index in range(len(self._chunks)):
+            with self._ready:
+                while index not in self._results:
+                    if self._error is not None:
+                        raise RuntimeError(
+                            "Parallel decoder worker failed") \
+                            from self._error
+                    if not any(t.is_alive() for t in self._threads) \
+                            and index not in self._results:
+                        raise RuntimeError(
+                            "Parallel decoder workers exited early.")
+                    self._ready.wait(0.05)
+                result = self._results.pop(index)
+                self._ready.notify_all()
+            if result is None:
+                raise RuntimeError("Parallel decoder worker failed") \
+                    from self._error
+            probe_hash, frames = result
+            if probe_hash is not None and last_hash is not None \
+                    and probe_hash != last_hash:
+                raise RuntimeError(
+                    f"Chunk seek misalignment at frame "
+                    f"{self._chunks[index]} of {self.path}: this source's "
+                    f"seeks are not frame-accurate on this backend "
+                    f"(open-GOP/B-frame/VFR?). Use the sequential reader "
+                    f"(decode_workers=0).")
+            if self.verify_seeks and frames:
+                last_hash = hashlib.sha1(frames[-1].tobytes()).digest()
+            pending.extend(frames)
+            while len(pending) >= self.batch_size:
+                batch = pending[:self.batch_size]
+                pending = pending[self.batch_size:]
+                yield position, convert(batch)
+                position += len(batch)
+            chunk_start = self._chunks[index]
+            expected = min(self.end_frame, chunk_start + self.chunk_frames) \
+                - chunk_start
+            if len(frames) < expected:
+                break  # stream ended early; later chunks would misalign
+        if pending:
+            yield position, convert(pending)
+
+    def close(self):
+        self._stop.set()
+        with self._ready:
+            self._results.clear()
+            self._ready.notify_all()
+        for thread in self._threads:
+            thread.join(timeout=10)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class PrefetchingReader:
