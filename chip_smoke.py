@@ -7,13 +7,19 @@ Phases, one line each (any failure raises and the exit code is not 0):
 
 1. device: the card's name, its ``nvidia-smi`` name and power limit;
 2. build: the three kernel libraries (``grade``, ``grain``, ``probe``)
-   compiled from ``kernels/csrc`` with nvcc, all started together;
+   compiled from ``kernels/csrc`` with nvcc, all started together, and
+   beside them probes of each kernel's per-pixel code, whose
+   floating-point ``cuobjdump -sass`` instructions price the operations
+   term of each kernel's bound;
 3. kernel vs plain: the fused kernels against their plain PyTorch versions
    on the card, on the flagship stack (LUT ``LUTS/teal_orange.cube`` at 8,
    adjust contrast 12 / vignette 20, colour match 0.7, unsharp 1.5 zero
    border, grain 0.05 / 0.5 / seed 42) at 1080p x 8, 4K x 2 and
    1 x 1079 x 1917, grain off and on, with the max abs errors beside their
-   bounds and the CUDA-event times of kernel and plain version;
+   bounds and the CUDA-event times of kernel and plain version; phase 1
+   also timed on a smooth frame (a gradient plus light noise), whose
+   neighbouring pixels share LUT cells, and a ``copy_`` of the same 24
+   bytes a pixel as the measured copy floor;
 4. determinism: reruns and batch splits are bit-identical;
 5. main path: seeded uint8 batches streamed through the appliers'
    generator in fused mode (48 frames of 4K at batch 2, 100 frames of
@@ -53,7 +59,12 @@ Phases, one line each (any failure raises and the exit code is not 0):
 Each path (5, 7, 8's layout run, 9's probe run, 12) is driven with the
 launch counts set to 0 just before it and read just after; launches made
 to compare a kernel with its plain version are not counted.  The last three
-lines are the kernels' JSON record, the ``nvidia-smi`` name and power
+lines are the kernels' JSON record (with each kernel's bound at 4K x 2:
+the larger of its bytes at 3.35 TB/s and its floating-point operations,
+float32 at 67 TFLOP/s, MUFU and conversions at a sixteenth of that,
+float64 at 34 TFLOP/s; and, for ``weighted_row_sum``, the time of
+``torch.mv``, the one PyTorch call that computes its function), the
+``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Exits with a non-zero code
 and prints no result when no CUDA card is visible or the package is
 missing.
@@ -64,6 +75,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -100,6 +112,107 @@ JOB_CLIP = (72, 12.0, (1920, 1080))                   # frames, fps, W x H
 BOUNDS = {"lab": 5e-4, "coeff": 1e-5, "rgb_grain_off": 2e-5,
           "rgb_grain_on": 5e-5, "probe": 1e-4, "resample_cpu": 1e-5,
           "resample_cv2": 1e-3}
+# NVIDIA's H100 SXM data sheet (at the 700 W limit): HBM bandwidth, and
+# the float32 and float64 rates outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12
+# MUFU (exp2, log2, reciprocal, square root, sine, cosine) and the
+# float <-> int conversions run 16 a clock per SM, against 128 float32
+# FMAs of 2 operations each (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0): a sixteenth of the
+# float32 rate, in instructions
+XU_OPS_PER_S = FP32_OPS_PER_S / 16
+# SASS opcode -> (instruction class, operations): the floating-point
+# instructions; integer, address, memory and branch instructions are not
+# counted, so the operations term stays a lower bound
+SASS_OPS = {
+    **{op: ("fp32", 2) for op in ("FFMA", "FFMA32I")},
+    **{op: ("fp32", 1) for op in ("FADD", "FADD32I", "FMUL", "FMUL32I",
+                                  "FMNMX", "FSETP", "FSEL", "FSET", "FCHK",
+                                  "FSWZADD")},
+    **{op: ("xu", 1) for op in ("MUFU", "F2F", "F2I", "I2F", "FRND")},
+    "DFMA": ("fp64", 2),
+    **{op: ("fp64", 1) for op in ("DADD", "DMUL", "DSETP", "DMNMX")},
+}
+OPS_RATES = {"fp32": FP32_OPS_PER_S, "xu": XU_OPS_PER_S,
+             "fp64": FP64_OPS_PER_S}
+# Probe kernels for the operations term of the bounds: each runs one pixel
+# of a kernel's own per-pixel code (grade.cu's helpers and common.h's
+# functions, on the flagship's path: adjust contrast and vignette, grain
+# on) on values it loads, so nothing folds.  Its floating-point SASS
+# instructions above the copy-only "base" probe are what a pixel costs.
+# Phase 2 is priced at one LAB -> RGB conversion a pixel, the function's
+# own; the halo's extra conversions are the kernel's overhead.
+SASS_PROBE_SOURCE = r"""
+#include "grade.cu"
+
+#define PROBE(name)                                                \
+  extern "C" __global__ void probe_##name(const float* __restrict__ in, \
+                                          float* __restrict__ out, int n)
+
+PROBE(base) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int c = 0; c < 3; ++c) out[3 * i + c] = in[3 * i + c];
+}
+
+// lattice cell, gather, trilerp and blend, [adjust], LAB, float64 sums
+template <bool kAdjust>
+__device__ __forceinline__ void phase1_pixel(const float* __restrict__ in,
+                                             float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float source[3] = {in[3 * i], in[3 * i + 1], in[3 * i + 2]};
+  const float dmin[3] = {in[0], in[1], in[2]};
+  const float inv_span[3] = {in[3], in[4], in[5]};
+  float frac[3], g[24], color[3], lab[3];
+  const int cell = lattice_cell(source, dmin, inv_span, n, frac);
+  for (int k = 0; k < 24; ++k) g[k] = in[24 * cell + k];
+  trilerp_blend(g, frac, source, in[6], in[7], color);
+  if (kAdjust) {
+    AdjustParams adjust{};
+    adjust.contrast = in[8];
+    adjust.vignette = in[9];
+    int y, x;
+    pixel_yx(i, n, in[10], y, x);
+    apply_adjust(color, kAdjustOn | kContrast | kVignette, adjust, y, x, n,
+                 n);
+  }
+  rgb_to_lab(color, lab);
+  double* sums = reinterpret_cast<double*>(out) + 6 * i;
+  add_sums(lab, sums);
+}
+
+PROBE(grade_phase1) { phase1_pixel<true>(in, out, n); }
+PROBE(grade_phase1_planes) { phase1_pixel<false>(in, out, n); }
+
+// the affine transfer and LAB -> RGB of the pixel, the 3x3 unsharp of each
+// channel (eight neighbours loaded), the grain and the final clip
+PROBE(grade_phase2) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float v[3], rgb[3], g[3];
+  for (int c = 0; c < 3; ++c) v[c] = in[3 * i + c] * in[c] + in[3 + c];
+  lab_to_rgb(v, rgb);
+  grain_field(static_cast<uint32_t>(n), static_cast<uint32_t>(i), in[6],
+              in[7], g);
+  for (int c = 0; c < 3; ++c) {
+    float w[3][3];
+    for (int k = 0; k < 9; ++k) w[k / 3][k % 3] = in[9 * i + k + c];
+    w[1][1] = rgb[c];
+    out[3 * i + c] = clip01(unsharp3x3(w, in[8]) + g[c] * in[9]);
+  }
+}
+
+// film_grain's pixel: the grain and clip(x + grain * intensity)
+PROBE(film_grain) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float g[3];
+  grain_field(static_cast<uint32_t>(n), static_cast<uint32_t>(i), in[0],
+              in[1], g);
+  for (int c = 0; c < 3; ++c) {
+    out[3 * i + c] = clip01(in[3 * i + c] + g[c] * in[2]);
+  }
+}
+"""
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
     "grade_phase1": ("vrgdg_tpu_torch/kernels/csrc/grade.cu",
@@ -162,6 +275,127 @@ def _label(shape) -> str:
     return "x".join(map(str, shape))
 
 
+def _start_sass_probe(folder: str):
+    """Start nvcc on :data:`SASS_PROBE_SOURCE` (sm_90a, -O3, next to the
+    kernels' sources); returns the cubin path and the process."""
+    from vrgdg_tpu_torch.kernels import build
+
+    source = os.path.join(folder, "probe_math.cu")
+    with open(source, "w", encoding="utf-8") as handle:
+        handle.write(SASS_PROBE_SOURCE)
+    cubin = os.path.join(folder, "probe_math.cubin")
+    process = subprocess.Popen(
+        [build.find_nvcc(), "-cubin", "-O3", "-std=c++17", "-arch=sm_90a",
+         "-I", build.CSRC_DIR, "-o", cubin, source],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        errors="replace")
+    return cubin, process
+
+
+def _sass_counts(text: str, prefix: str = "probe_") -> dict:
+    """Floating-point operations of each ``<prefix>*`` function of
+    ``cuobjdump -sass`` output, by instruction class (:data:`SASS_OPS`), on the
+    path these inputs take: from its entry to its first unpredicated EXIT
+    (out-of-line slow paths after it are not counted), leaving out every
+    stretch that a forward conditional branch jumps over and that holds a
+    loop (a backward branch): in the probes, the large-argument reduction
+    of sinf and cosf, which runs only for |x| > 105615 and never for
+    Box-Muller's angles in (0, 2 pi]."""
+    functions, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            found = re.search(r"Function : " + prefix + r"(\w+)", line)
+            name = found.group(1) if found else None
+            if name is not None:
+                functions[name] = []
+            continue
+        found = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(@!?U?P\w+\s+)?"
+                         r"([A-Z0-9_]+)[^;]*?(?:0x([0-9a-f]+))?\s*;", line)
+        if name is not None and found:
+            address, predicate, opcode, target = found.groups()
+            functions[name].append(
+                (int(address, 16), bool(predicate), opcode,
+                 int(target, 16) if target and opcode == "BRA" else None))
+    counts = {}
+    for name, code in functions.items():
+        skipped = set()
+        for address, predicate, opcode, target in code:
+            if opcode == "BRA" and predicate and target and target > address:
+                inside = [i for i in code if address < i[0] < target]
+                if any(i[2] == "BRA" and i[3] is not None and i[3] < i[0]
+                       for i in inside):
+                    skipped.update(i[0] for i in inside)
+        total = dict.fromkeys(OPS_RATES, 0)
+        for address, predicate, opcode, _ in code:
+            if opcode == "EXIT" and not predicate:
+                break
+            if address not in skipped and opcode in SASS_OPS:
+                kind, ops = SASS_OPS[opcode]
+                total[kind] += ops
+        counts[name] = total
+    return counts
+
+
+def _finish_sass_probe(cubin: str, process) -> dict:
+    """Each probe's operations by instruction class, above the ``base``
+    probe."""
+    from vrgdg_tpu_torch.kernels import build
+
+    log, _ = process.communicate(timeout=600)
+    if process.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the SASS probe:\n{log}")
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = _sass_counts(text)
+    expected = {"base", "grade_phase1", "grade_phase1_planes",
+                "grade_phase2", "film_grain"}
+    if set(counts) != expected:
+        raise RuntimeError(f"SASS probe: found {sorted(counts)}")
+    base = counts.pop("base")
+    return {name: {kind: ops - base[kind] for kind, ops in count.items()}
+            for name, count in counts.items()}
+
+
+def kernel_bounds(shape, bundle_bytes: int, sass: dict) -> dict:
+    """Kernel -> (bound ms, "bytes" or "operations") at ``shape``: the
+    larger of the bytes each function must move (each input read once,
+    each output written once) at :data:`HBM_BYTES_PER_S`, and its
+    floating-point operations a pixel from ``sass`` (the probes of
+    :data:`SASS_PROBE_SOURCE`), each instruction class at its rate in
+    :data:`OPS_RATES`; the classes run side by side, so the slowest sets
+    the term.  ``weighted_row_sum`` runs one row a pixel: 24 FMAs."""
+    from vrgdg_tpu_torch.kernels.grade_cuda import PHASE1_BLOCK
+
+    batch, height, width = shape
+    pixels = batch * height * width
+    partials = batch * -(-height * width // PHASE1_BLOCK) * 6 * 8
+    work = {   # name: (bytes, operations a pixel by instruction class)
+        "grade_phase1": (24 * pixels + bundle_bytes + partials,
+                         sass["grade_phase1"]),
+        "grade_phase2": (24 * pixels + batch * 24, sass["grade_phase2"]),
+        "grade_phase1_planes": (120 * pixels + partials,
+                                sass["grade_phase1_planes"]),
+        "grade_phase2_planes": (24 * pixels + batch * 24,
+                                sass["grade_phase2"]),
+        "film_grain": (24 * pixels, sass["film_grain"]),
+        "weighted_row_sum": (100 * pixels, {"fp32": 48}),
+    }
+    bounds = {}
+    for name, (nbytes, ops) in work.items():
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        terms = {kind: ops.get(kind, 0) * pixels / rate * 1e3
+                 for kind, rate in OPS_RATES.items()}
+        ops_ms = max(terms.values())
+        bounds[name] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                        else (ops_ms, "operations"))
+        _say("bound", kernel=name, bytes_ms=f"{bytes_ms:.4f}",
+             **{f"{kind}_ops": ops.get(kind, 0) for kind in OPS_RATES},
+             **{f"{kind}_ms": f"{ms:.4f}" for kind, ms in terms.items()},
+             bound_by=bounds[name][1])
+    return bounds
+
+
 def _stack(device):
     """Flagship config, LUT and seeded reference statistics on ``device``."""
     from vrgdg_tpu_torch.api import appliers, paths
@@ -188,6 +422,21 @@ def _frames(shape, seed: int, device, channels: int = 3):
     u8 = torch.randint(0, 256, (*shape, channels), dtype=torch.uint8,
                        generator=generator)
     return u8.to(device).to(torch.float32) / 255.0
+
+
+def _smooth_frames(shape, seed: int, device):
+    """A gradient per channel (x, y, their mean) plus uniform noise of
+    +-2 levels: neighbouring pixels fall in the same LUT cells, as in real
+    footage."""
+    batch, height, width = shape
+    y = torch.linspace(0.0, 1.0, height, device=device)[:, None]
+    x = torch.linspace(0.0, 1.0, width, device=device)[None, :]
+    ramp = torch.stack([x.expand(height, width), y.expand(height, width),
+                        ((x + y) / 2).expand(height, width)], dim=-1)
+    generator = torch.Generator(device="cpu").manual_seed(seed)
+    noise = (torch.rand((batch, height, width, 3), generator=generator)
+             - 0.5) * (4.0 / 255.0)
+    return torch.clamp(ramp + noise.to(device), 0.0, 1.0).contiguous()
 
 
 def kernels_vs_plain(device, config, lut, ref_stats, shapes, reps=10):
@@ -264,9 +513,36 @@ def kernels_vs_plain(device, config, lut, ref_stats, shapes, reps=10):
                 for name, (_, p) in shape_times.items()})
         if tuple(shape) == TIMED_SHAPE:
             times = shape_times
+            smooth_line(frames, table, domain, blend, adjust, reps,
+                        shape_times["grade_phase1"][0])
         del frames, lab_k, lab_p, part_k, part_p
         torch.cuda.empty_cache()
     return errors, times
+
+
+def smooth_line(frames, table, domain, blend, adjust, reps,
+                random_ms) -> None:
+    """Phase 1 on a smooth batch of ``frames``' shape beside its time on
+    the seeded uniform one, and a ``copy_`` of ``frames`` (12 bytes read
+    and 12 written a pixel) as the measured copy floor."""
+    from vrgdg_tpu_torch.kernels import grade_cuda as gc
+
+    smooth = _smooth_frames(tuple(frames.shape[:3]), 120, frames.device)
+    lab_k, _ = gc.phase1(smooth, table, domain, blend=blend, adjust=adjust)
+    lab_p, _ = gc.phase1_plain(smooth, table, domain, blend=blend,
+                               adjust=adjust)
+    err = _max_err(lab_k, lab_p)
+    _check("smooth LAB", err, BOUNDS["lab"])
+    smooth_ms = _cuda_ms(lambda: gc.phase1(smooth, table, domain,
+                                           blend=blend, adjust=adjust), reps)
+    copy = torch.empty_like(frames)
+    copy_ms = _cuda_ms(lambda: copy.copy_(frames), reps)
+    _say("phase1-smooth", shape=_label(frames.shape[:3]),
+         lab_err=f"{err:.3g}<={BOUNDS['lab']:g}",
+         grade_phase1_smooth_ms=f"{smooth_ms:.4f}",
+         grade_phase1_uniform_ms=f"{random_ms:.4f}",
+         copy_floor_ms=f"{copy_ms:.4f}")
+    del smooth, lab_k, lab_p, copy
 
 
 def determinism(device, config, lut, ref_stats, shape=SPLIT_SHAPE) -> None:
@@ -641,8 +917,9 @@ def layouts(device, config, lut, ref_stats, shapes, reps=10):
 
 def probe(device, reps=10):
     """Phase 9: the transpose probe's run, then ``weighted_row_sum``
-    against its plain version; returns max error, ms at 4K x 2's pixel
-    count and the probe run's launches."""
+    against its plain version and ``torch.mv`` (the one PyTorch call that
+    computes the same function; timed only); returns max error, ms at 4K x
+    2's pixel count, the probe run's launches and ``torch.mv``'s ms."""
     from vrgdg_tpu_torch.kernels import build, probe_cuda
     from vrgdg_tpu_torch.tools import probe_transpose
 
@@ -652,8 +929,10 @@ def probe(device, reps=10):
     _check("transpose probe vs its numpy oracle", probe_err, BOUNDS["probe"])
     _say("probe", rows=4096, err=f"{probe_err:.3g}<={BOUNDS['probe']:g}",
          launches=launches)
-    worst, timed = 0.0, None
+    worst, timed, library_ms = 0.0, None, None
     pixels = TIMED_SHAPE[0] * TIMED_SHAPE[1] * TIMED_SHAPE[2]
+    weights = torch.arange(1, probe_cuda.WIDTH + 1, dtype=torch.float32,
+                           device=device)
     for rows in (4096, pixels):
         generator = torch.Generator(device="cpu").manual_seed(rows)
         g = (torch.rand((rows, 24), generator=generator) * 2 - 1).to(device)
@@ -663,13 +942,15 @@ def probe(device, reps=10):
         worst = max(worst, err)
         ms = _timed_pair(lambda: probe_cuda.weighted_row_sum(g),
                          lambda: probe_cuda.weighted_row_sum_plain(g), reps)
+        library_ms = _cuda_ms(lambda: torch.mv(g, weights), reps)
         _say("probe-vs-plain", rows=rows, err=f"{err:.3g}",
              weighted_row_sum_ms=f"{ms[0]:.4f}",
-             weighted_row_sum_plain_ms=f"{ms[1]:.4f}")
+             weighted_row_sum_plain_ms=f"{ms[1]:.4f}",
+             torch_mv_ms=f"{library_ms:.4f}")
         timed = ms
         del g
     torch.cuda.empty_cache()
-    return worst, timed, launches
+    return worst, timed, launches, library_ms
 
 
 def file_phase(device, config, lut) -> None:
@@ -974,7 +1255,10 @@ def main() -> int:
          count=torch.cuda.device_count())
 
     started = time.perf_counter()
-    built = build.load_libraries()
+    with tempfile.TemporaryDirectory() as folder:
+        cubin, sass_build = _start_sass_probe(folder)
+        built = build.load_libraries()
+        sass = _finish_sass_probe(cubin, sass_build)
     _say("build", seconds=f"{time.perf_counter() - started:.2f}",
          **{f"nvcc_{stem}_seconds": f"{b.seconds:.2f}"
             for stem, b in built.items()})
@@ -982,8 +1266,11 @@ def main() -> int:
         for line in library.log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
+    _say("sass-ops", **{name: ",".join(f"{k}={v}" for k, v in ops.items())
+                        for name, ops in sass.items()})
 
     config, lut, ref_stats = _stack(device)
+    bounds = kernel_bounds(TIMED_SHAPE, lut.size ** 3 * 24 * 4, sass)
     errors, times = kernels_vs_plain(device, config, lut, ref_stats, SHAPES)
     determinism(device, config, lut, ref_stats)
     launches = main_path(device, config, lut, ref_stats, card)
@@ -995,7 +1282,8 @@ def main() -> int:
     times.update(layout_times)
     launches.update(layout_launches)
     (errors["weighted_row_sum"], times["weighted_row_sum"],
-     probe_launches) = probe(device)
+     probe_launches, mv_ms) = probe(device)
+    library_ms = {"weighted_row_sum": mv_ms}
     launches.update(probe_launches)
     file_phase(device, config, lut)
     resample_phase(device)
@@ -1009,7 +1297,9 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": errors[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
+         "plain_ms": times[name][1], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1],
+         "library_ms": library_ms.get(name)}
         for name, (source, replaces) in SOURCES.items()]}
     print(json.dumps(record), flush=True)
     print(card, flush=True)

@@ -77,6 +77,68 @@ def test_kernels_match_plain_versions():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1079, 1917), (3, 37, 250), (1, 9, 33),
+                                   (1, 1, 5)])
+def test_phases_match_plain_versions(shape):
+    """Frames whose starts are not 16-byte aligned (H*W*3 % 4 != 0 from
+    frame 1 on), and frames smaller than a phase-1 chunk or a phase-2 tile:
+    each phase against its plain version at the smoke's bounds."""
+    device = _card()
+    config, lut, ref_stats = _config(device)
+    bundle, dmin, dmax, ref_mean, ref_std = prepare_operands(
+        config, lut=lut, ref_stats=ref_stats, device=device)
+    domain = gc.lut_domain(dmin, dmax)
+    frames = torch.rand((*shape, 3),
+                        generator=torch.Generator().manual_seed(14)).to(device)
+    gc.reset_launch_counts()
+    lab_k, part_k = gc.phase1(frames, bundle, domain, blend=0.8,
+                              adjust=config.adjust)
+    lab_p, part_p = gc.phase1_plain(frames, bundle, domain, blend=0.8,
+                                    adjust=config.adjust)
+    assert part_k.shape == part_p.shape
+    assert float((lab_k - lab_p).abs().max()) <= 5e-4
+    pixels = shape[1] * shape[2]
+    coeff_k, coeff_p = (gc.stats_barrier(p, pixels, ref_mean, ref_std, 0.7)
+                        for p in (part_k, part_p))
+    assert float((coeff_k - coeff_p).abs().max()) <= 1e-5
+    for grain, bound in ((0.0, 2e-5), (0.05, 5e-5)):
+        kw = dict(sharpen_strength=1.5, grain_intensity=grain,
+                  saturation_mix=0.5, seed_base=42)
+        rgb_k = gc.phase2(lab_p, coeff_p, **kw)
+        rgb_p = gc.phase2_plain(lab_p, coeff_p, **kw)
+        torch.cuda.synchronize()
+        assert float((rgb_k - rgb_p).abs().max()) <= bound, grain
+    assert gc.LAUNCHES["grade_phase1"] == 1
+    assert gc.LAUNCHES["grade_phase2"] == 2
+
+
+@pytest.mark.cuda
+def test_phases_batch_split_is_bit_identical_on_card():
+    """Frames 1..2 of a batch of 3 against the same frames as a batch of
+    their own (a misaligned slice and a contiguous copy): the same LAB,
+    partials and phase-2 output bits."""
+    device = _card()
+    config, lut, ref_stats = _config(device)
+    bundle, dmin, dmax, ref_mean, ref_std = prepare_operands(
+        config, lut=lut, ref_stats=ref_stats, device=device)
+    domain = gc.lut_domain(dmin, dmax)
+    frames = torch.rand((3, 1079, 1917, 3),
+                        generator=torch.Generator().manual_seed(15)).to(device)
+    lab, part = gc.phase1(frames, bundle, domain, blend=0.8,
+                          adjust=config.adjust)
+    for tail in (frames[1:], frames[1:].contiguous().clone()):
+        lab_t, part_t = gc.phase1(tail, bundle, domain, blend=0.8,
+                                  adjust=config.adjust)
+        assert torch.equal(lab_t, lab[1:]) and torch.equal(part_t, part[1:])
+    coeff = gc.stats_barrier(part, 1079 * 1917, ref_mean, ref_std, 0.7)
+    kw = dict(sharpen_strength=1.5, grain_intensity=0.05, saturation_mix=0.5)
+    whole = gc.phase2(lab, coeff, seed_base=42, **kw)
+    tail = gc.phase2(lab[1:], coeff[1:].contiguous(), seed_base=43, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tail, whole[1:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 37, 250, 3), (1, 9, 33, 3)])
 def test_planes_kernels_match_plain_versions(shape):
     device = _card()

@@ -259,7 +259,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "vrgdg_tpu_torch.cli, vrgdg_tpu_torch.kernels.grade_cuda, "
             "vrgdg_tpu_torch.kernels.grain_cuda, "
             "vrgdg_tpu_torch.kernels.probe_cuda, "
-            "vrgdg_tpu_torch.tools.probe_transpose, vrgdg_tpu_torch.jobs, "
+            "vrgdg_tpu_torch.tools.probe_transpose, "
+            "vrgdg_tpu_torch.jobs, "
             "vrgdg_tpu_torch.jobs.enhancer, vrgdg_tpu_torch.jobs.manifest, "
             "vrgdg_tpu_torch.jobs.prepare_restore, "
             "vrgdg_tpu_torch.ops.resize, vrgdg_tpu_torch.native\n"
@@ -363,3 +364,61 @@ def test_safe_lut_path_copy(name):
     assert jpaths.SUPPORTED_IMAGE_EXTENSIONS == tpaths.SUPPORTED_IMAGE_EXTENSIONS
     assert os.path.abspath(jpaths.DEFAULT_LUTS_DIR) == os.path.abspath(
         tpaths.DEFAULT_LUTS_DIR)
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_smoke_smooth_frame_is_a_gradient():
+    """The smooth frame chip_smoke.py and paired_grade.py time phase 1 on:
+    a ramp per channel plus +-2 levels of noise, in [0, 1]."""
+    smoke = _chip_smoke()
+    frames = smoke._smooth_frames((2, 9, 17), 120, "cpu")
+    assert frames.shape == (2, 9, 17, 3) and frames.is_contiguous()
+    assert float(frames.min()) >= 0.0 and float(frames.max()) <= 1.0
+    step = float((frames[:, :, 1:] - frames[:, :, :-1]).abs().max())
+    assert step <= 1 / 16 + 4 / 255 + 1e-6
+
+
+def test_smoke_sass_count_prices_float_instructions_by_class():
+    """The operations term of chip_smoke.py's bounds: floating-point SASS
+    instructions only (FFMA and DFMA as two), by instruction class, up to the
+    first unpredicated EXIT, skipping a forward-branched loop (sinf's
+    large-argument reduction) and functions that are not probes."""
+    smoke = _chip_smoke()
+    sass = """
+        Function : probe_x
+        /*0000*/                   MUFU.EX2 R2, R3 ;
+        /*0010*/                   FFMA R2, R3, R4, R5 ;
+        /*0020*/                   FADD R2, R3, R4 ;
+        /*0030*/               @P0 BRA 0x70 ;
+        /*0040*/                   FMUL R2, R3, R4 ;
+        /*0050*/                   IADD3 R2, R3, R4, RZ ;
+        /*0060*/               @P1 BRA 0x40 ;
+        /*0070*/                   DFMA R2, R4, R6, R8 ;
+        /*0080*/                   F2F.F64.F32 R4, R2 ;
+        /*0090*/                   IMAD R2, R3, R4, R5 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   FFMA R2, R3, R4, R5 ;
+        Function : _ZN_grade_phase1_kernel
+        /*0000*/                   FFMA R2, R3, R4, R5 ;
+"""
+    assert smoke._sass_counts(sass) == {
+        "x": {"fp32": 3, "xu": 2, "fp64": 2}}
+    bounds = smoke.kernel_bounds(
+        (2, 2160, 3840), 33 ** 3 * 96,
+        {name: {"fp32": 400, "xu": 200, "fp64": 0}
+         for name in ("grade_phase1", "grade_phase1_planes",
+                      "grade_phase2", "film_grain")})
+    pixels = 2 * 2160 * 3840
+    assert bounds["grade_phase2"] == (
+        pytest.approx(200 * pixels / smoke.XU_OPS_PER_S * 1e3), "operations")
+    assert bounds["weighted_row_sum"] == (
+        pytest.approx(100 * pixels / smoke.HBM_BYTES_PER_S * 1e3), "bytes")

@@ -126,6 +126,59 @@ def test_phase1_and_barrier_match_jax_statistics(stack):
     assert float(np.max(np.abs(coeff[:, 3:].numpy() - want_b))) <= 1e-3
 
 
+def _phase1_of(stack, frames):
+    _, bundle, _, _ = stack
+    domain = torch.tensor([[0.0] * 3, [1.0] * 3])
+    return gc.phase1_plain(torch.from_numpy(frames), torch.from_numpy(bundle),
+                           domain, blend=0.8,
+                           adjust=AdjustSettings.normalize(ADJUST))
+
+
+def test_phase1_partials_are_one_row_per_chunk(stack):
+    """One partials row per PHASE1_BLOCK consecutive pixels of a frame,
+    the last one shorter: the float64 sums of its L, a, b and squares."""
+    frames = np.random.default_rng(11).uniform(
+        0, 1, (2, 100, 130, 3)).astype(np.float32)
+    lab, partials = _phase1_of(stack, frames)
+    assert gc.PHASE1_BLOCK == 8192
+    assert partials.shape == (2, 2, 6) and partials.dtype == torch.float64
+    flat = lab.reshape(2, -1, 3).double()
+    for b in range(2):
+        for row, (lo, hi) in enumerate(((0, 8192), (8192, 13000))):
+            chunk = flat[b, lo:hi]
+            want = torch.cat([chunk.sum(0), (chunk * chunk).sum(0)])
+            torch.testing.assert_close(partials[b, row], want, rtol=1e-12,
+                                       atol=0.0)
+
+
+@pytest.mark.parametrize("b", [0, 1, 2])
+def test_phase1_partials_of_a_frame_do_not_depend_on_the_batch(stack, b):
+    """The chunks follow H x W alone: frame b's rows are the same bits in
+    a batch of 3 and alone."""
+    frames = np.random.default_rng(12).uniform(
+        0, 1, (3, 90, 100, 3)).astype(np.float32)
+    lab, whole = _phase1_of(stack, frames)
+    lab_alone, alone = _phase1_of(stack, frames[b:b + 1])
+    assert whole.shape == (3, 2, 6)
+    assert torch.equal(alone[0], whole[b])
+    assert torch.equal(lab_alone[0], lab[b])
+
+
+def test_frame_statistics_match_float64_whole_frame(stack):
+    """The barrier's per-frame mean and ddof=1 std (+1e-5) from the chunk
+    partials equal the float64 statistics of the whole frame's LAB."""
+    frames = np.random.default_rng(13).uniform(
+        0, 1, (2, 100, 130, 3)).astype(np.float32)
+    lab, partials = _phase1_of(stack, frames)
+    mean, std = gc.frame_statistics(partials, 100 * 130)
+    flat = lab.numpy().reshape(2, -1, 3).astype(np.float64)
+    want_mean = flat.mean(axis=1)
+    want_std = flat.std(axis=1, ddof=1) + 1e-5
+    assert mean.dtype == std.dtype == torch.float64
+    np.testing.assert_allclose(mean.numpy(), want_mean, rtol=1e-9, atol=0.0)
+    np.testing.assert_allclose(std.numpy(), want_std, rtol=1e-9, atol=0.0)
+
+
 def test_wrappers_run_plain_versions_on_cpu(stack):
     """CPU tensors go to the plain versions and launch nothing."""
     _, bundle, ref_mean, ref_std = stack

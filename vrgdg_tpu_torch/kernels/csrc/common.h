@@ -6,7 +6,10 @@
 // includes this header once, so the film-grain kernel (grain.cu) and the
 // grade's phase 2 (grade.cu) draw identical grain from one copy of the
 // stream.  Numerics follow the plain PyTorch versions formula by formula
-// (same constants, same association order, same clip points).
+// (same constants, same association order, same clip points), except that
+// the colour conversions take their powers through exp2f/log2f and divide
+// by constants through reciprocals: the last-ulp differences the kernels'
+// bounds allow.
 
 #pragma once
 
@@ -41,6 +44,12 @@ constexpr float kLabKappa = 7.787f;
 constexpr float kLabOffset = 0.13793103448275862f;  // 4/29
 constexpr float kLabFtCut = 0.2068966f;
 constexpr float kInvGamma = 0.41666666666666669f;   // 1/2.4
+constexpr float kInvKappa = 1.0f / kLabKappa;
+constexpr float kInv1055 = 1.0f / 1.055f;
+constexpr float kInv1292 = 1.0f / 12.92f;
+constexpr float kInv116 = 1.0f / 116.0f;
+constexpr float kInv500 = 1.0f / 500.0f;
+constexpr float kInv200 = 1.0f / 200.0f;
 constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kTwoPow24Inv = 5.9604644775390625e-08f;
 constexpr uint32_t kSeedMask = 0x7FFFFFFFu;
@@ -49,12 +58,29 @@ __device__ __forceinline__ float clip01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
-__device__ __forceinline__ float srgb_to_linear(float x) {
-  return x > 0.04045f ? powf((x + 0.055f) / 1.055f, 2.4f) : x / 12.92f;
+// x / d for a constant d of reciprocal r = 1/d: the product x * r,
+// corrected by one FMA step.  A bare x * r carries the rounding of r with
+// the same sign on every pixel; phase 1's frame means sum millions of
+// pixels, and that bias moved the colour-match offsets past the bounds.
+__device__ __forceinline__ float div_const(float x, float d, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, d, x), r, q);
 }
 
+// sRGB -> linear.  v^2.4 is taken as v^2 * 2^(0.4 log2 v): the rounding of
+// the exponent is scaled by 0.4, not 2.4, so this stays within ~3e-7
+// relative of powf at a fraction of its instructions.
+__device__ __forceinline__ float srgb_to_linear(float x) {
+  if (x > 0.04045f) {
+    const float v = div_const(x + 0.055f, 1.055f, kInv1055);
+    return v * v * exp2f(0.4f * log2f(v));
+  }
+  return div_const(x, 12.92f, kInv1292);
+}
+
+// linear -> sRGB, x^(1/2.4) as 2^(log2 x / 2.4)
 __device__ __forceinline__ float linear_to_srgb(float x) {
-  return x > 0.0031308f ? 1.055f * powf(fmaxf(x, 0.0f), kInvGamma) - 0.055f
+  return x > 0.0031308f ? 1.055f * exp2f(log2f(x) * kInvGamma) - 0.055f
                         : 12.92f * x;
 }
 
@@ -63,7 +89,7 @@ __device__ __forceinline__ float lab_f(float t) {
 }
 
 __device__ __forceinline__ float lab_f_inverse(float f) {
-  return f > kLabFtCut ? f * f * f : (f - kLabOffset) / kLabKappa;
+  return f > kLabFtCut ? f * f * f : (f - kLabOffset) * kInvKappa;
 }
 
 __device__ __forceinline__ void rgb_to_lab(const float rgb[3], float lab[3]) {
@@ -71,23 +97,25 @@ __device__ __forceinline__ void rgb_to_lab(const float rgb[3], float lab[3]) {
   const float gl = srgb_to_linear(rgb[1]);
   const float bl = srgb_to_linear(rgb[2]);
   const float white[3] = {kWhiteX, kWhiteY, kWhiteZ};
+  const float inv_white[3] = {1.0f / kWhiteX, 1.0f / kWhiteY, 1.0f / kWhiteZ};
   float f[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const float xyz = rl * kRgb2Xyz[i][0] + gl * kRgb2Xyz[i][1] +
                       bl * kRgb2Xyz[i][2];
-    f[i] = lab_f(xyz / white[i]);
+    f[i] = lab_f(div_const(xyz, white[i], inv_white[i]));
   }
   lab[0] = 116.0f * f[1] - 16.0f;
   lab[1] = 500.0f * (f[0] - f[1]);
   lab[2] = 200.0f * (f[1] - f[2]);
 }
 
-// LAB -> sRGB, clipped to [0, 1].
+// LAB -> sRGB, clipped to [0, 1].  Nothing downstream sums these values,
+// so the divisions by constants are plain products with reciprocals.
 __device__ __forceinline__ void lab_to_rgb(const float lab[3], float rgb[3]) {
-  const float fy = (lab[0] + 16.0f) / 116.0f;
-  const float fx = lab[1] / 500.0f + fy;
-  const float fz = fmaxf(fy - lab[2] / 200.0f, 0.0f);
+  const float fy = (lab[0] + 16.0f) * kInv116;
+  const float fx = lab[1] * kInv500 + fy;
+  const float fz = fmaxf(fy - lab[2] * kInv200, 0.0f);
   const float x = lab_f_inverse(fx) * kWhiteX;
   const float y = lab_f_inverse(fy) * kWhiteY;
   const float z = lab_f_inverse(fz) * kWhiteZ;

@@ -1,38 +1,68 @@
 // The fused grade stack's Hopper kernels (sm_90a), with a plain C interface
-// loaded through ctypes by vrgdg_tpu_torch/kernels/grade_cuda.py.  Each
-// phase is one kernel template over two memory layouts:
+// loaded through ctypes by vrgdg_tpu_torch/kernels/grade_cuda.py.
 //
-// - BHWC (the flat layout):
-//   grade_phase1 replaces vrgdg_tpu/kernels/grade_pallas.py::
-//   _phase1_rowmajor_kernel: per pixel, the LUT trilerp read straight from
-//   the (N^3, 24) corner bundle, the strength blend, the elementwise adjust
-//   sliders, RGB -> CIELAB, and per-block float64 partial sums of L, a, b
-//   and their squares for the colour-match statistics.
-//   grade_phase2 replaces grade_pallas.py::_phase2_flat_kernel: the
+// - grade_phase1 replaces vrgdg_tpu/kernels/grade_pallas.py::
+//   _phase1_rowmajor_kernel: per pixel of a BHWC batch, the LUT trilerp
+//   read straight from the (N^3, 24) corner bundle, the strength blend,
+//   the elementwise adjust sliders, RGB -> CIELAB, and per-chunk float64
+//   sums of L, a, b and their squares for the colour-match statistics.
+// - grade_phase2 replaces grade_pallas.py::_phase2_flat_kernel: the
 //   per-frame affine LAB transfer, LAB -> RGB, the 3x3 zero-border box
-//   unsharp and the Philox4x32-10 film grain.
-// - channel planes (the "rowmajor" and "plane" layouts):
-//   grade_phase1_planes replaces grade_pallas.py::_phase1_kernel: the same
-//   math without adjust, fed by corner-major planes (24, B, H*W) that the
-//   wrapper gathers with torch indexing, as XLA gathers them for the TPU.
-//   grade_phase2_planes replaces grade_pallas.py::_phase2_kernel: phase 2
-//   over (B, 3, H, W) LAB planes in, RGB planes out.
+//   unsharp and the Philox4x32-10 film grain, BHWC in and out.
+// - grade_phase1_planes (replaces grade_pallas.py::_phase1_kernel) and
+//   grade_phase2_planes (replaces ::_phase2_kernel) run the same math over
+//   channel planes for the "plane" and "rowmajor" layouts, off the main
+//   path: phase 1 fed by corner-major planes (24, B, H*W) that the wrapper
+//   gathers with torch indexing, phase 2 over (B, 3, H, W) planes.  They
+//   keep the first port's one-pixel-per-thread form; phase 1 planes writes
+//   grade_phase1's per-chunk partials rows.  All four share common.h's
+//   colour conversions, so every layout computes LAB and RGB alike.
 //
-// What bounds them on an H100: phase 1 moves 24 bytes of HBM per pixel
-// (12 in, 12 out) and gathers one 96-byte bundle row per pixel, which stays
-// in the 50 MB L2 (3.4 MB for N=33); the planes variant instead streams the
-// 96 gathered bytes per pixel from HBM (coalesced, one plane per corner
-// value), so it moves 120 bytes per pixel.  Its arithmetic (one powf per
-// channel, one cbrtf per channel) is small beside that.  Phase 2 moves the
-// same 24 bytes per pixel in either layout but is arithmetic-heavy: LAB ->
-// RGB costs three powf per pixel, so each block converts its (8+2) x (32+2)
-// halo tile once into shared memory instead of nine times per pixel, and
-// the grain costs one Philox call (10 rounds) plus two logf/sqrtf and three
-// sinf/cosf per pixel.  The planes layouts read and write each channel as
-// its own coalesced row, the BHWC ones three interleaved floats per thread.
+// What bounds the two main-path kernels on an H100.  Each moves 24 bytes
+// of HBM a pixel (12 in, 12 out): 0.12 ms for a 4K x 2 batch at 3.35 TB/s,
+// the larger term of their bound.  Their floating-point work a pixel
+// (chip_smoke.py prices it from the SASS of probes of this file's
+// per-pixel code) is below that at the card's FP32 and MUFU rates.  But it
+// runs on dependent chains (the powers, cbrtf, Philox, Box-Muller), and
+// phase 1 gathers a 96-byte bundle row a pixel from L2 (the 33^3 bundle,
+// 3.4 MB, stays there), four times its HBM bytes.  What decides their time
+// is latency: how many warps an SM holds to cover the gathers and the
+// chains.  No product is larger than 3x3, so the tensor cores have no role.
 //
-// Built without --use_fast_math; nvcc's default FMA contraction is the
-// remaining last-ulp difference from the plain versions.
+// The design, chosen by timing alternatives on the card:
+// - grade_phase1: a block owns one fixed chunk of kChunkPixels pixels of
+//   one frame (the split depends on H x W alone, so reruns and batch
+//   splits give the same partials bits); its kPhase1Threads threads walk
+//   the chunk one pixel at a time at 64 registers, 32 warps an SM, loading
+//   each next pixel's src one step ahead of its math, keep the six float64
+//   sums in registers over the whole chunk and reduce them once, in a fixed
+//   order, with no atomics (the first port reduced every 256 pixels).
+//   Loads and stores are per pixel, so a frame's 16-byte (mis)alignment
+//   does not matter.
+// - grade_phase2: a 32 x 64 output tile a block (34 x 66 halo: 1.10 LAB ->
+//   RGB conversions per output pixel; the first port's 32 x 8 tile paid
+//   1.33), the RGB halo in shared memory as three channel planes, and each
+//   thread filtering an 8-row column strip with a 3 x 3 window per channel
+//   sliding down the strip in registers, the nine taps summed row by row,
+//   left to right, as ops/sharpen.py sums them.  Out-of-frame halo entries
+//   are RGB 0, the zero border.  The grain is common.h's grain_field,
+//   unchanged.  TMA is not used for the halo: a tensor map needs a row
+//   pitch (3W floats) that is a multiple of 16 bytes, which frames of a
+//   width not divisible by 4 do not have.
+// - The asynchronous-copy designs lost to these on the card.  For phase 1:
+//   src streamed through a ring of shared-memory stages filled by
+//   cp.async.bulk with an mbarrier, 1, 2 or 4 pixels' gathers in flight a
+//   thread, LAB out as float4 rows; for phase 2: a persistent loop over
+//   64 x 32 tiles with the next halo loaded by cp.async into a second
+//   buffer, 4 pixels a thread along x, float4 output rows.  The registers
+//   that hold several bundle rows, and the shared memory of two halos, cost
+//   more warps than the overlap saves.  kernel_variants/grade_variants.cu
+//   keeps them, built on this file, and kernel_variants/grade_variants.py
+//   times them beside these kernels.
+//
+// Built without --use_fast_math; nvcc's FMA contraction and common.h's
+// rewritten powers and divisions are the last-ulp differences from the
+// plain versions.
 
 #include "common.h"
 
@@ -51,9 +81,22 @@ constexpr int kFade = 1 << 8;
 constexpr int kVignette = 1 << 9;
 constexpr int kAdjustOn = 1 << 10;
 
-constexpr int kPhase1Threads = 256;
+// grade_phase1: pixels a block owns (one partials row) and its threads.
+constexpr int kChunkPixels = 8192;
+constexpr int kPhase1Threads = 512;
+
+// grade_phase2: output tile, threads a column, rows a thread.
 constexpr int kTileW = 32;
-constexpr int kTileH = 8;
+constexpr int kStripThreads = 8;
+constexpr int kStripRows = 8;
+constexpr int kTileH = kStripThreads * kStripRows;
+
+// the planes kernels: one pixel per thread
+constexpr int kPlanesThreads = 256;
+constexpr int kPlanesTileW = 32;
+constexpr int kPlanesTileH = 8;
+
+constexpr float kInvNine = 1.0f / 9.0f;
 
 // torch.linspace(-1, 1, steps)[i] as PyTorch computes it.
 __device__ __forceinline__ float linspace_pm1(int i, int steps) {
@@ -63,13 +106,128 @@ __device__ __forceinline__ float linspace_pm1(int i, int steps) {
                        : 1.0f - step * static_cast<float>(steps - i - 1);
 }
 
-// Offset of channel c of pixel (y, x) of frame b: BHWC interleaves the
-// channels, the planes layout keeps (B, 3, H, W).
-template <bool kPlanes>
-__device__ __forceinline__ size_t pixel_at(int b, int c, size_t pixel,
-                                           size_t pixels) {
-  return kPlanes ? (static_cast<size_t>(b) * 3 + c) * pixels + pixel
-                 : (static_cast<size_t>(b) * pixels + pixel) * 3 + c;
+// The trilerp of one pixel from its bundle row ``g`` (corners [c000, c100,
+// c010, c110, c001, c101, c011, c111], each (b, g, r)), blended with the
+// source by ``keep`` / ``blend``.
+__device__ __forceinline__ void trilerp_blend(const float g[24],
+                                              const float frac[3],
+                                              const float source[3],
+                                              float blend, float keep,
+                                              float color[3]) {
+  const float fr = frac[0], fg = frac[1], fb = frac[2];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float c00 = g[0 + c] * (1.0f - fb) + g[3 + c] * fb;
+    const float c01 = g[6 + c] * (1.0f - fb) + g[9 + c] * fb;
+    const float c10 = g[12 + c] * (1.0f - fb) + g[15 + c] * fb;
+    const float c11 = g[18 + c] * (1.0f - fb) + g[21 + c] * fb;
+    const float c0 = c00 * (1.0f - fg) + c01 * fg;
+    const float c1 = c10 * (1.0f - fg) + c11 * fg;
+    const float graded = clip01(c0 * (1.0f - fr) + c1 * fr);
+    color[c] = source[c] * keep + graded * blend;
+  }
+}
+
+// Bundle row and lattice fractions of one pixel: (x - dmin) * (1/span), the
+// expression the plain version and the planes wrapper's gather use, so frac
+// and cell always agree with them.
+__device__ __forceinline__ int lattice_cell(const float source[3],
+                                            const float dmin[3],
+                                            const float inv_span[3],
+                                            int lut_size, float frac[3]) {
+  const float max_index = static_cast<float>(lut_size - 1);
+  int lo[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float coord = clip01((source[i] - dmin[i]) * inv_span[i]) * max_index;
+    const float floor_coord = floorf(coord);
+    frac[i] = coord - floor_coord;
+    lo[i] = static_cast<int>(floor_coord);
+  }
+  return (lo[2] * lut_size + lo[1]) * lut_size + lo[0];
+}
+
+// Bundle row ``cell`` (96 bytes, 16-byte aligned) as six float4 loads.
+__device__ __forceinline__ void gather_row(const float* __restrict__ table,
+                                           int cell, float g[24]) {
+  const float4* row4 =
+      reinterpret_cast<const float4*>(table + static_cast<size_t>(cell) * 24);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float4 v = __ldg(row4 + k);
+    g[4 * k] = v.x;
+    g[4 * k + 1] = v.y;
+    g[4 * k + 2] = v.z;
+    g[4 * k + 3] = v.w;
+  }
+}
+
+// Block-wide fixed-order reduction of six float64 sums; thread k < 6 writes
+// total k to ``row[k]``.
+template <int kThreads>
+__device__ __forceinline__ void reduce_sums(const double sums[6],
+                                            double* __restrict__ row) {
+  __shared__ double warp_sums[kThreads / 32][6];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    double v = sums[k];
+#pragma unroll
+    for (int offset = 16; offset > 0; offset >>= 1) {
+      v += __shfl_down_sync(0xFFFFFFFFu, v, offset);
+    }
+    if (lane == 0) warp_sums[warp][k] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    double total = 0.0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) total += warp_sums[w][threadIdx.x];
+    row[threadIdx.x] = total;
+  }
+}
+
+// The (y, x) of pixel p of a frame of the given width: a float estimate
+// from 1/width, corrected by one.
+__device__ __forceinline__ void pixel_yx(int p, int width, float inv_width,
+                                         int& y, int& x) {
+  y = static_cast<int>(static_cast<float>(p) * inv_width);
+  x = p - y * width;
+  if (x < 0) {
+    --y;
+    x += width;
+  } else if (x >= width) {
+    ++y;
+    x -= width;
+  }
+}
+
+// One pixel's LAB into the six float64 sums [L, a, b, L^2, a^2, b^2].
+__device__ __forceinline__ void add_sums(const float lab[3], double sums[6]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const double v = static_cast<double>(lab[c]);
+    sums[c] += v;
+    sums[3 + c] += v * v;
+  }
+}
+
+// The 3x3 box unsharp of one channel from its window w[row][column], the
+// nine taps summed row by row, left to right, as ops/sharpen.py sums them.
+__device__ __forceinline__ float unsharp3x3(const float w[3][3],
+                                            float sharpen) {
+  float sum = w[0][0];
+  sum = sum + w[0][1];
+  sum = sum + w[0][2];
+  sum = sum + w[1][0];
+  sum = sum + w[1][1];
+  sum = sum + w[1][2];
+  sum = sum + w[2][0];
+  sum = sum + w[2][1];
+  sum = sum + w[2][2];
+  const float blur = sum * kInvNine;
+  return clip01(w[1][1] + sharpen * (w[1][1] - blur));
 }
 
 }  // namespace
@@ -154,140 +312,93 @@ __device__ __forceinline__ void apply_adjust(float c[3], int flags,
   for (int i = 0; i < 3; ++i) c[i] = clip01(c[i]);
 }
 
-// Grid (ceil(H*W / 256), B); one thread per pixel.  partials[b, block, k]
-// holds the block's float64 sums [L, a, b, L^2, a^2, b^2], reduced in a
-// fixed order (warp shuffles, then warp 0 over the warp totals): no
-// atomics, so reruns are bit-identical.  Both layouts write the same
-// partials rows, so the stats barrier is shared.
-//
-// BHWC: src (B, H, W, 3); table the (N^3, 24) bundle, read one 96-byte row
-// per pixel with six float4 loads; lab (B, H, W, 3).
-// Planes: src (3, B, H*W); table the gathered corner planes (24, B, H*W),
-// plane 3j + c holding channel c of corner j; lab (B, 3, H*W).  No adjust.
-template <bool kPlanes>
-__global__ void __launch_bounds__(kPhase1Threads)
+// ---------------------------------------------------------------------------
+// grade_phase1
+// ---------------------------------------------------------------------------
+
+// Grid (ceil(H*W / kChunkPixels), B), kPhase1Threads threads, each taking
+// pixels tid, tid + kPhase1Threads, ... of the block's chunk.  src and lab
+// are (B, H, W, 3); partials[b, chunk, k] holds the chunk's float64 sums
+// [L, a, b, L^2, a^2, b^2].
+__global__ void __launch_bounds__(kPhase1Threads, 2)
 grade_phase1_kernel(const float* __restrict__ src,
                     const float* __restrict__ table, int lut_size,
                     const float* __restrict__ domain, float blend,
                     float keep, int adjust_flags, AdjustParams adjust,
-                    int batch, int height, int width,
-                    float* __restrict__ lab_out,
+                    int height, int width, float* __restrict__ lab_out,
                     double* __restrict__ partials) {
   const int frame = blockIdx.y;
-  const size_t pixels = static_cast<size_t>(height) * width;
-  const int p = blockIdx.x * kPhase1Threads + threadIdx.x;
+  const long long pixels = static_cast<long long>(height) * width;
+  const long long first = static_cast<long long>(blockIdx.x) * kChunkPixels;
+  const int count = static_cast<int>(
+      pixels - first < kChunkPixels ? pixels - first : kChunkPixels);
+  const size_t offset = (static_cast<size_t>(frame) * pixels + first) * 3;
+  const float* chunk_src = src + offset;
+  float* chunk_lab = lab_out + offset;
+  const float dmin[3] = {domain[0], domain[1], domain[2]};
+  const float inv_span[3] = {domain[3], domain[4], domain[5]};
+  const bool adjust_on = adjust_flags & kAdjustOn;
+  const float inv_width = 1.0f / static_cast<float>(width);
+
   double sums[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  if (p < pixels) {
-    float source[3];
+  // src is loaded one pixel ahead, so its HBM latency overlaps the
+  // current pixel's gather and math
+  float ahead[3] = {0.0f, 0.0f, 0.0f};
+  auto load_src = [&](int q) {
+    if (q < count) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      source[c] = kPlanes
-          ? src[(static_cast<size_t>(c) * batch + frame) * pixels + p]
-          : src[pixel_at<false>(frame, c, p, pixels)];
+      for (int c = 0; c < 3; ++c) ahead[c] = __ldg(chunk_src + 3 * q + c);
     }
-    const float max_index = static_cast<float>(lut_size - 1);
+  };
+  load_src(threadIdx.x);
+  for (int q = threadIdx.x; q < count; q += kPhase1Threads) {
+    const float source[3] = {ahead[0], ahead[1], ahead[2]};
+    load_src(q + kPhase1Threads);
     float frac[3];
-    int lo[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      // (x - dmin) * (1/span): the same expression the plain version and
-      // the planes wrapper's gather use, so frac and cell always agree
-      const float coord =
-          clip01((source[i] - domain[i]) * domain[3 + i]) * max_index;
-      const float floor_coord = floorf(coord);
-      frac[i] = coord - floor_coord;
-      lo[i] = static_cast<int>(floor_coord);
-    }
+    const int cell = lattice_cell(source, dmin, inv_span, lut_size, frac);
     float g[24];
-    if constexpr (kPlanes) {
-#pragma unroll
-      for (int k = 0; k < 24; ++k) {
-        g[k] = __ldg(table + (static_cast<size_t>(k) * batch + frame) *
-                                 pixels + p);
-      }
-    } else {
-      const int cell = (lo[2] * lut_size + lo[1]) * lut_size + lo[0];
-      const float4* row4 = reinterpret_cast<const float4*>(
-          table + static_cast<size_t>(cell) * 24);
-#pragma unroll
-      for (int q = 0; q < 6; ++q) {
-        const float4 v = __ldg(row4 + q);
-        g[4 * q] = v.x;
-        g[4 * q + 1] = v.y;
-        g[4 * q + 2] = v.z;
-        g[4 * q + 3] = v.w;
-      }
-    }
-    const float fr = frac[0], fg = frac[1], fb = frac[2];
+    gather_row(table, cell, g);
     float color[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      // corners [c000, c100, c010, c110, c001, c101, c011, c111] (b, g, r)
-      const float c00 = g[0 + c] * (1.0f - fb) + g[3 + c] * fb;
-      const float c01 = g[6 + c] * (1.0f - fb) + g[9 + c] * fb;
-      const float c10 = g[12 + c] * (1.0f - fb) + g[15 + c] * fb;
-      const float c11 = g[18 + c] * (1.0f - fb) + g[21 + c] * fb;
-      const float c0 = c00 * (1.0f - fg) + c01 * fg;
-      const float c1 = c10 * (1.0f - fg) + c11 * fg;
-      const float graded = clip01(c0 * (1.0f - fr) + c1 * fr);
-      color[c] = source[c] * keep + graded * blend;
-    }
-    if (!kPlanes && (adjust_flags & kAdjustOn)) {
-      apply_adjust(color, adjust_flags, adjust, p / width, p % width, height,
-                   width);
+    trilerp_blend(g, frac, source, blend, keep, color);
+    if (adjust_on) {
+      int y, x;
+      pixel_yx(static_cast<int>(first) + q, width, inv_width, y, x);
+      apply_adjust(color, adjust_flags, adjust, y, x, height, width);
     }
     float lab[3];
     rgb_to_lab(color, lab);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      lab_out[pixel_at<kPlanes>(frame, c, p, pixels)] = lab[c];
-      const double v = static_cast<double>(lab[c]);
-      sums[c] = v;
-      sums[3 + c] = v * v;
-    }
+    for (int c = 0; c < 3; ++c) chunk_lab[3 * q + c] = lab[c];
+    add_sums(lab, sums);
   }
-
-  __shared__ double warp_sums[kPhase1Threads / 32][6];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    double v = sums[k];
-#pragma unroll
-    for (int offset = 16; offset > 0; offset >>= 1) {
-      v += __shfl_down_sync(0xFFFFFFFFu, v, offset);
-    }
-    if (lane == 0) warp_sums[warp][k] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 6) {
-    double total = 0.0;
-#pragma unroll
-    for (int w = 0; w < kPhase1Threads / 32; ++w) {
-      total += warp_sums[w][threadIdx.x];
-    }
-    partials[(static_cast<size_t>(frame) * gridDim.x + blockIdx.x) * 6 +
-             threadIdx.x] = total;
-  }
+  reduce_sums<kPhase1Threads>(
+      sums, partials + (static_cast<size_t>(frame) * gridDim.x + blockIdx.x) *
+                           6);
 }
 
-// Grid (ceil(W/32), ceil(H/8), B), block (32, 8).  Each block converts its
-// halo tile's LAB to clipped RGB once, into shared memory; out-of-frame
-// halo entries hold 0 (the zero border).  coeff[b] = [A_L, A_a, A_b, B_L,
-// B_a, B_b] of the affine transfer lab' = A * lab + B.  lab and out are
-// BHWC, or (B, 3, H, W) planes when kPlanes; the tile, the 9-tap order and
-// the grain are the same in both, so every layout draws identical grain.
-template <bool kPlanes>
-__global__ void __launch_bounds__(kTileW * kTileH)
+// ---------------------------------------------------------------------------
+// grade_phase2
+// ---------------------------------------------------------------------------
+
+// Grid (ceil(W / kTileW), ceil(H / kTileH), B), block (kTileW,
+// kStripThreads).  The block converts its tile's (kTileH + 2) x (kTileW +
+// 2) halo from LAB to clipped RGB once, into three shared channel planes
+// (out-of-frame entries RGB 0, the zero border); thread (tx, ty) then
+// filters column x0 + tx, rows y0 + kStripRows * ty .. + kStripRows - 1,
+// sliding a 3 x 3 window per channel down the strip.  coeff[b] = [A_L,
+// A_a, A_b, B_L, B_a, B_b] of the affine transfer lab' = A * lab + B; lab
+// and out are (B, H, W, 3).
+__global__ void __launch_bounds__(kTileW * kStripThreads)
 grade_phase2_kernel(const float* __restrict__ lab,
                     const float* __restrict__ coeff, int height, int width,
                     float sharpen, float grain, float mix, float keep_mix,
                     uint32_t seed_base, float* __restrict__ out) {
-  __shared__ float tile[kTileH + 2][kTileW + 2][3];
+  __shared__ float rgb_tile[3][kTileH + 2][kTileW + 2];
   const int frame = blockIdx.z;
   const int x0 = blockIdx.x * kTileW;
   const int y0 = blockIdx.y * kTileH;
   const size_t pixels = static_cast<size_t>(height) * width;
+  const float* frame_lab = lab + static_cast<size_t>(frame) * pixels * 3;
   const float a[3] = {coeff[frame * 6], coeff[frame * 6 + 1],
                       coeff[frame * 6 + 2]};
   const float b[3] = {coeff[frame * 6 + 3], coeff[frame * 6 + 4],
@@ -295,9 +406,152 @@ grade_phase2_kernel(const float* __restrict__ lab,
 
   const int tid = threadIdx.y * kTileW + threadIdx.x;
   for (int i = tid; i < (kTileH + 2) * (kTileW + 2);
-       i += kTileW * kTileH) {
-    const int ty = i / (kTileW + 2);
-    const int tx = i % (kTileW + 2);
+       i += kTileW * kStripThreads) {
+    const int hy = i / (kTileW + 2);
+    const int hx = i - hy * (kTileW + 2);
+    const int y = y0 + hy - 1;
+    const int x = x0 + hx - 1;
+    float rgb[3] = {0.0f, 0.0f, 0.0f};
+    if (y >= 0 && y < height && x >= 0 && x < width) {
+      const float* px = frame_lab + (static_cast<size_t>(y) * width + x) * 3;
+      float v[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[c] = px[c] * a[c] + b[c];
+      lab_to_rgb(v, rgb);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rgb_tile[c][hy][hx] = rgb[c];
+  }
+  __syncthreads();
+
+  const int x = x0 + threadIdx.x;
+  if (x >= width) return;
+  const int hx = threadIdx.x + 1;
+  const int top = threadIdx.y * kStripRows;  // halo row above the strip
+  const uint32_t key = (seed_base + static_cast<uint32_t>(frame)) & kSeedMask;
+  // w[c][r][d]: channel c, halo rows top + row + r, columns hx - 1 + d
+  float w[3][3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) w[c][r][d] = rgb_tile[c][top + r][hx - 1 + d];
+    }
+  }
+#pragma unroll
+  for (int row = 0; row < kStripRows; ++row) {
+    float sharp[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        w[c][2][d] = rgb_tile[c][top + row + 2][hx - 1 + d];
+      }
+      sharp[c] = unsharp3x3(w[c], sharpen);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        w[c][0][d] = w[c][1][d];
+        w[c][1][d] = w[c][2][d];
+      }
+    }
+    const int y = y0 + top + row;
+    if (y >= height) break;
+    const size_t pixel = static_cast<size_t>(y) * width + x;
+    float* o = out + (static_cast<size_t>(frame) * pixels + pixel) * 3;
+    if (grain > 0.0f) {
+      float g[3];
+      grain_field(key, static_cast<uint32_t>(pixel), mix, keep_mix, g);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) o[c] = clip01(sharp[c] + g[c] * grain);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) o[c] = sharp[c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the planes kernels ("plane" / "rowmajor" layouts)
+// ---------------------------------------------------------------------------
+
+// Grid (ceil(H*W / kChunkPixels), B), kPlanesThreads threads looping over
+// the block's chunk one pixel a thread: src (3, B, H*W); table the gathered
+// corner planes (24, B, H*W), plane 3j + c holding channel c of corner j;
+// lab (B, 3, H*W); partials as grade_phase1's.  No adjust.
+__global__ void __launch_bounds__(kPlanesThreads)
+grade_phase1_planes_kernel(const float* __restrict__ src,
+                           const float* __restrict__ table, int lut_size,
+                           const float* __restrict__ domain, float blend,
+                           float keep, int batch, int height, int width,
+                           float* __restrict__ lab_out,
+                           double* __restrict__ partials) {
+  const int frame = blockIdx.y;
+  const size_t pixels = static_cast<size_t>(height) * width;
+  const size_t first = static_cast<size_t>(blockIdx.x) * kChunkPixels;
+  const size_t end =
+      first + kChunkPixels < pixels ? first + kChunkPixels : pixels;
+  const float dmin[3] = {domain[0], domain[1], domain[2]};
+  const float inv_span[3] = {domain[3], domain[4], domain[5]};
+  double sums[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  for (size_t p = first + threadIdx.x; p < end; p += kPlanesThreads) {
+    float source[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      source[c] = src[(static_cast<size_t>(c) * batch + frame) * pixels + p];
+    }
+    float frac[3];
+    lattice_cell(source, dmin, inv_span, lut_size, frac);
+    float g[24];
+#pragma unroll
+    for (int k = 0; k < 24; ++k) {
+      g[k] = __ldg(table + (static_cast<size_t>(k) * batch + frame) * pixels +
+                   p);
+    }
+    float color[3];
+    trilerp_blend(g, frac, source, blend, keep, color);
+    float lab[3];
+    rgb_to_lab(color, lab);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      lab_out[(static_cast<size_t>(frame) * 3 + c) * pixels + p] = lab[c];
+    }
+    add_sums(lab, sums);
+  }
+  reduce_sums<kPlanesThreads>(
+      sums, partials + (static_cast<size_t>(frame) * gridDim.x + blockIdx.x) *
+                           6);
+}
+
+// Grid (ceil(W/32), ceil(H/8), B), block (32, 8).  Each block converts its
+// halo tile's LAB to clipped RGB once, into shared memory; out-of-frame
+// halo entries hold 0 (the zero border).  lab and out are (B, 3, H, W)
+// planes; the 9-tap order and the grain are grade_phase2's, so every
+// layout draws identical grain.
+__global__ void __launch_bounds__(kPlanesTileW * kPlanesTileH)
+grade_phase2_planes_kernel(const float* __restrict__ lab,
+                           const float* __restrict__ coeff, int height,
+                           int width, float sharpen, float grain, float mix,
+                           float keep_mix, uint32_t seed_base,
+                           float* __restrict__ out) {
+  __shared__ float tile[kPlanesTileH + 2][kPlanesTileW + 2][3];
+  const int frame = blockIdx.z;
+  const int x0 = blockIdx.x * kPlanesTileW;
+  const int y0 = blockIdx.y * kPlanesTileH;
+  const size_t pixels = static_cast<size_t>(height) * width;
+  const float a[3] = {coeff[frame * 6], coeff[frame * 6 + 1],
+                      coeff[frame * 6 + 2]};
+  const float b[3] = {coeff[frame * 6 + 3], coeff[frame * 6 + 4],
+                      coeff[frame * 6 + 5]};
+  auto at = [&](int c, size_t pixel) {
+    return (static_cast<size_t>(frame) * 3 + c) * pixels + pixel;
+  };
+
+  const int tid = threadIdx.y * kPlanesTileW + threadIdx.x;
+  for (int i = tid; i < (kPlanesTileH + 2) * (kPlanesTileW + 2);
+       i += kPlanesTileW * kPlanesTileH) {
+    const int ty = i / (kPlanesTileW + 2);
+    const int tx = i % (kPlanesTileW + 2);
     const int y = y0 + ty - 1;
     const int x = x0 + tx - 1;
     float rgb[3] = {0.0f, 0.0f, 0.0f};
@@ -305,9 +559,7 @@ grade_phase2_kernel(const float* __restrict__ lab,
       const size_t pixel = static_cast<size_t>(y) * width + x;
       float v[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        v[c] = lab[pixel_at<kPlanes>(frame, c, pixel, pixels)] * a[c] + b[c];
-      }
+      for (int c = 0; c < 3; ++c) v[c] = lab[at(c, pixel)] * a[c] + b[c];
       lab_to_rgb(v, rgb);
     }
 #pragma unroll
@@ -323,17 +575,13 @@ grade_phase2_kernel(const float* __restrict__ lab,
   float sharp[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    // the nine taps summed row by row, left to right, as ops/sharpen.py
-    // sums them
-    float sum = 0.0f;
+    float w[3][3];
 #pragma unroll
-    for (int dy = -1; dy <= 1; ++dy) {
+    for (int r = 0; r < 3; ++r) {
 #pragma unroll
-      for (int dx = -1; dx <= 1; ++dx) sum = sum + tile[ty + dy][tx + dx][c];
+      for (int d = 0; d < 3; ++d) w[r][d] = tile[ty + r - 1][tx + d - 1][c];
     }
-    const float blur = sum / 9.0f;
-    const float center = tile[ty][tx][c];
-    sharp[c] = clip01(center + sharpen * (center - blur));
+    sharp[c] = unsharp3x3(w, sharpen);
   }
 
   const size_t pixel = static_cast<size_t>(y) * width + x;
@@ -343,49 +591,17 @@ grade_phase2_kernel(const float* __restrict__ lab,
     grain_field(key, static_cast<uint32_t>(pixel), mix, keep_mix, g);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      out[pixel_at<kPlanes>(frame, c, pixel, pixels)] =
-          clip01(sharp[c] + g[c] * grain);
+      out[at(c, pixel)] = clip01(sharp[c] + g[c] * grain);
     }
   } else {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      out[pixel_at<kPlanes>(frame, c, pixel, pixels)] = sharp[c];
-    }
+    for (int c = 0; c < 3; ++c) out[at(c, pixel)] = sharp[c];
   }
 }
 
-template <bool kPlanes>
-int launch_phase1(int device, const float* src, const float* table,
-                  int lut_size, const float* domain, float blend, float keep,
-                  int adjust_flags, AdjustParams adjust, int batch,
-                  int height, int width, float* lab, double* partials,
-                  void* stream) {
-  VRGDG_SELECT_DEVICE(device);
+unsigned chunks_of(int height, int width) {
   const long long pixels = static_cast<long long>(height) * width;
-  const dim3 grid(
-      static_cast<unsigned>((pixels + kPhase1Threads - 1) / kPhase1Threads),
-      batch);
-  grade_phase1_kernel<kPlanes><<<grid, kPhase1Threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      src, table, lut_size, domain, blend, keep, adjust_flags, adjust, batch,
-      height, width, lab, partials);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kPlanes>
-int launch_phase2(int device, const float* lab, const float* coeff,
-                  int batch, int height, int width, float sharpen,
-                  float grain, float mix, float keep_mix,
-                  unsigned int seed_base, float* out, void* stream) {
-  VRGDG_SELECT_DEVICE(device);
-  const dim3 block(kTileW, kTileH);
-  const dim3 grid((width + kTileW - 1) / kTileW,
-                  (height + kTileH - 1) / kTileH, batch);
-  grade_phase2_kernel<kPlanes><<<grid, block, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      lab, coeff, height, width, sharpen, grain, mix, keep_mix, seed_base,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<unsigned>((pixels + kChunkPixels - 1) / kChunkPixels);
 }
 
 }  // namespace
@@ -399,9 +615,13 @@ int vrgdg_grade_phase1(int device, const float* src, const float* bundle,
                        float keep, int adjust_flags, AdjustParams adjust,
                        int batch, int height, int width, float* lab,
                        double* partials, void* stream) {
-  return launch_phase1<false>(device, src, bundle, lut_size, domain, blend,
-                              keep, adjust_flags, adjust, batch, height,
-                              width, lab, partials, stream);
+  VRGDG_SELECT_DEVICE(device);
+  const dim3 grid(chunks_of(height, width), batch);
+  grade_phase1_kernel<<<grid, kPhase1Threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      src, bundle, lut_size, domain, blend, keep, adjust_flags, adjust,
+      height, width, lab, partials);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int vrgdg_grade_phase1_planes(int device, const float* src_planes,
@@ -410,18 +630,27 @@ int vrgdg_grade_phase1_planes(int device, const float* src_planes,
                               int batch, int height, int width,
                               float* lab_planes, double* partials,
                               void* stream) {
-  return launch_phase1<true>(device, src_planes, corner_planes, lut_size,
-                             domain, blend, keep, 0, AdjustParams{}, batch,
-                             height, width, lab_planes, partials, stream);
+  VRGDG_SELECT_DEVICE(device);
+  const dim3 grid(chunks_of(height, width), batch);
+  grade_phase1_planes_kernel<<<grid, kPlanesThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      src_planes, corner_planes, lut_size, domain, blend, keep, batch,
+      height, width, lab_planes, partials);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int vrgdg_grade_phase2(int device, const float* lab, const float* coeff,
                        int batch, int height, int width, float sharpen,
                        float grain, float mix, float keep_mix,
                        unsigned int seed_base, float* out, void* stream) {
-  return launch_phase2<false>(device, lab, coeff, batch, height, width,
-                              sharpen, grain, mix, keep_mix, seed_base, out,
-                              stream);
+  VRGDG_SELECT_DEVICE(device);
+  const dim3 block(kTileW, kStripThreads);
+  const dim3 grid((width + kTileW - 1) / kTileW,
+                  (height + kTileH - 1) / kTileH, batch);
+  grade_phase2_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      lab, coeff, height, width, sharpen, grain, mix, keep_mix, seed_base,
+      out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int vrgdg_grade_phase2_planes(int device, const float* lab_planes,
@@ -430,11 +659,17 @@ int vrgdg_grade_phase2_planes(int device, const float* lab_planes,
                               float mix, float keep_mix,
                               unsigned int seed_base, float* out_planes,
                               void* stream) {
-  return launch_phase2<true>(device, lab_planes, coeff, batch, height, width,
-                             sharpen, grain, mix, keep_mix, seed_base,
-                             out_planes, stream);
+  VRGDG_SELECT_DEVICE(device);
+  const dim3 block(kPlanesTileW, kPlanesTileH);
+  const dim3 grid((width + kPlanesTileW - 1) / kPlanesTileW,
+                  (height + kPlanesTileH - 1) / kPlanesTileH, batch);
+  grade_phase2_planes_kernel<<<grid, block, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      lab_planes, coeff, height, width, sharpen, grain, mix, keep_mix,
+      seed_base, out_planes);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int vrgdg_phase1_block_size() { return kPhase1Threads; }
+int vrgdg_phase1_block_size() { return kChunkPixels; }
 
 }  // extern "C"

@@ -8,15 +8,32 @@ the LUT runs as two kernels around it:
 - **phase 1** (``grade_phase1`` in ``csrc/grade.cu``; replaces
   ``vrgdg_tpu/kernels/grade_pallas.py:297`` ``_phase1_rowmajor_kernel``):
   per pixel, the trilerp from the ``(N^3, 24)`` corner bundle, the strength
-  blend, the elementwise adjust sliders, RGB -> LAB, and per-block float64
+  blend, the elementwise adjust sliders, RGB -> LAB, and per-chunk float64
   sums of L, a, b and their squares;
 - **the stats barrier** (:func:`stats_barrier`, torch ops on the device,
-  no host sync): the block sums, reduced in a fixed order, become one
+  no host sync): the chunk sums, reduced in a fixed order, become one
   affine LAB map per frame, ``lab' = A * lab + B``;
 - **phase 2** (``grade_phase2``; replaces
   ``vrgdg_tpu/kernels/grade_pallas.py:453`` ``_phase2_flat_kernel``): the
   affine transfer, LAB -> RGB, the 3x3 zero-border unsharp and the Philox
   grain of :mod:`vrgdg_tpu_torch.ops.grain`.
+
+What bounds them on an H100, and the design (the source note of
+``csrc/grade.cu`` has the reasons): each moves 24 bytes of HBM a pixel,
+the larger term of its bound (``chip_smoke.py`` prices the floating-point
+work of each kernel's per-pixel code below it), but runs that work on
+dependent chains, and phase 1 gathers a 96-byte bundle row a pixel from
+L2; their time is set by how many warps an SM holds to cover that
+latency.  Phase 1 gives each block a fixed chunk of :data:`PHASE1_BLOCK`
+pixels of one frame, walked one pixel a thread at a time at 32 warps an
+SM, with its float64 sums in registers over the chunk and one partials
+row per chunk.  Phase 2 filters 32 x 64 output tiles (1.10 LAB -> RGB
+conversions per output pixel) with a 3 x 3 window sliding down 8-row
+column strips.  All four kernels share ``csrc/common.h``'s conversions,
+which take ``powf`` as ``exp2f``/``log2f`` and keep the divisions by
+constants that phase 1's frame sums see exactly rounded.  The
+asynchronous-copy designs that lost to these on the card are kept, and
+timed, in ``kernel_variants/``.
 
 Both kernels take and give BHWC float32 of any ``H x W``; none of the
 TPU's tiling, padding or lane packing carries over, so nothing caps the
@@ -27,6 +44,7 @@ channel planes ``(B, 3, H, W)``:
   ``vrgdg_tpu/kernels/grade_pallas.py:218`` ``_phase1_kernel``): phase 1
   without adjust, fed by corner-major planes ``(24, B, H, W)`` that
   :func:`corner_planes` gathers with torch indexing outside the kernel;
+  it writes phase 1's partials rows;
 - **phase 2 on planes** (``grade_phase2_planes``; replaces
   ``vrgdg_tpu/kernels/grade_pallas.py:380`` ``_phase2_kernel``).
 
@@ -55,7 +73,9 @@ from ..ops.sharpen import unsharp
 from . import build
 from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (re-exported)
 
-PHASE1_BLOCK = 256      # pixels per phase-1 block: one partials row each
+# pixels per phase-1 block (its chunk of one frame): one partials row each;
+# csrc/grade.cu exports the same constant
+PHASE1_BLOCK = 8192
 LAYOUTS = ("flat", "rowmajor", "plane")
 EMITS = ("bhwc", "planes")
 
@@ -70,7 +90,7 @@ def _library():
     if lib.vrgdg_phase1_block_size() != PHASE1_BLOCK:
         raise build.KernelBuildError(
             "csrc/grade.cu and grade_cuda.PHASE1_BLOCK disagree on the "
-            "phase-1 block size")
+            "phase-1 chunk size")
     return lib
 
 
@@ -150,7 +170,7 @@ def _check_adjust_and_bhwc(src: torch.Tensor, adjust) -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 1: trilerp + blend + adjust + LAB + block partial sums
+# phase 1: trilerp + blend + adjust + LAB + chunk partial sums
 # --------------------------------------------------------------------------
 
 def phase1_plain(src: torch.Tensor, bundle: torch.Tensor,
@@ -160,9 +180,9 @@ def phase1_plain(src: torch.Tensor, bundle: torch.Tensor,
 
     ``src`` ``(B, H, W, 3)`` float32 in [0,1]; ``bundle`` ``(N^3, 24)``;
     ``domain`` ``(2, 3)`` rows ``[dmin, 1/span]``.  Returns LAB
-    ``(B, H, W, 3)`` float32 and partials ``(B, ceil(H*W/256), 6)`` float64:
-    per block of 256 consecutive pixels, the sums of L, a, b, L^2, a^2,
-    b^2."""
+    ``(B, H, W, 3)`` float32 and partials ``(B, ceil(H*W/PHASE1_BLOCK), 6)``
+    float64: per chunk of :data:`PHASE1_BLOCK` consecutive pixels of a
+    frame (the last one shorter), the sums of L, a, b, L^2, a^2, b^2."""
     _check_adjust_and_bhwc(src, adjust)
     cell, frac = _lattice(src, domain, _lut_size(bundle))
     return _phase1_from_rows(src, bundle[cell], frac, blend=blend,
@@ -182,7 +202,7 @@ def _lattice(src: torch.Tensor, domain: torch.Tensor, size: int):
 def _phase1_from_rows(src, rows, frac, *, blend: float,
                       adjust: AdjustSettings | None):
     """Phase 1's math on BHWC ``src``, its ``(B, H, W, 24)`` bundle rows
-    and lattice fractions: LAB and the per-block float64 partials."""
+    and lattice fractions: LAB and the per-chunk float64 partials."""
     graded = _trilerp([rows[..., 3 * k:3 * k + 3] for k in range(8)], frac)
     color = src * (1.0 - blend) + graded * blend
     if adjust is not None:
@@ -306,8 +326,19 @@ def phase1_planes(src_planes: torch.Tensor, planes: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# the stats barrier: block sums -> per-frame affine LAB transfer
+# the stats barrier: chunk sums -> per-frame affine LAB transfer
 # --------------------------------------------------------------------------
+
+def frame_statistics(partials: torch.Tensor, pixels: int):
+    """Float64 ``(B, 3)`` mean and ``(B, 3)`` std (``ddof=1``, plus 1e-5)
+    of each frame's L, a, b, from phase 1's ``(B, chunks, 6)`` partials
+    of a frame of ``pixels`` pixels."""
+    sums = partials.sum(dim=1)
+    n = float(pixels)
+    mean = sums[:, 0:3] / n
+    var = torch.clamp(sums[:, 3:6] - n * mean * mean, min=0.0) / (n - 1.0)
+    return mean, torch.sqrt(var) + 1e-5
+
 
 def stats_barrier(partials: torch.Tensor, pixels: int,
                   ref_mean: torch.Tensor, ref_std: torch.Tensor,
@@ -318,13 +349,9 @@ def stats_barrier(partials: torch.Tensor, pixels: int,
     ``var = max(S2 - n mu^2, 0) / (n - 1)``, ``std = sqrt(var) + 1e-5``,
     ``A = s sigma_ref / sigma + (1 - s)``, ``B = s (mu_ref - mu sigma_ref /
     sigma)``, with ``n`` the real pixels of a frame.  Runs in float64 on
-    the device (the block sums reduce in a fixed order, so reruns are
+    the device (the chunk sums reduce in a fixed order, so reruns are
     bit-identical) and never syncs with the host."""
-    sums = partials.sum(dim=1)
-    n = float(pixels)
-    mean = sums[:, 0:3] / n
-    var = torch.clamp(sums[:, 3:6] - n * mean * mean, min=0.0) / (n - 1.0)
-    std = torch.sqrt(var) + 1e-5
+    mean, std = frame_statistics(partials, pixels)
     rmean = ref_mean.reshape(-1, 3).to(torch.float64)
     rstd = ref_std.reshape(-1, 3).to(torch.float64)
     gain = rstd / std
