@@ -36,9 +36,11 @@ Phases, one line each (any failure raises and the exit code is not 0):
    the same stream with the default torch-op grain for comparison; a
    small clip is checked against the eager CPU path;
 8. layouts: the planes kernels against their plain versions at the three
-   shapes, then ``fused_post_gather`` with ``layout="rowmajor"`` and
-   ``"plane"`` against ``"flat"`` at 4K x 2, grain off and on, with each
-   layout's CUDA-event time and peak memory;
+   shapes, and ``grade_phase2_planes`` bit for bit against
+   ``grade_phase2`` on the same LAB, permuted, grain off and on; then
+   ``fused_post_gather`` with ``layout="rowmajor"`` and ``"plane"``
+   against ``"flat"`` at 4K x 2, grain off and on, with each layout's
+   CUDA-event time and peak memory;
 9. probe: ``python -m vrgdg_tpu_torch.tools.probe_transpose``'s run, and
    ``weighted_row_sum`` against its plain version at (4096, 24) and at
    4K x 2's pixel count;
@@ -58,14 +60,16 @@ Phases, one line each (any failure raises and the exit code is not 0):
 
 Each path (5, 7, 8's layout run, 9's probe run, 12) is driven with the
 launch counts set to 0 just before it and read just after; launches made
-to compare a kernel with its plain version are not counted.  The last three
-lines are the kernels' JSON record (with each kernel's bound at 4K x 2:
-the larger of its bytes at 3.35 TB/s and its floating-point operations,
-float32 at 67 TFLOP/s, MUFU and conversions at a sixteenth of that,
-float64 at 34 TFLOP/s; and, for ``weighted_row_sum``, the time of
-``torch.mv``, the one PyTorch call that computes its function), the
-``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.  Exits with a non-zero code
+to compare a kernel with its plain version are not counted; a kernel's
+``launches`` in the record sum every path that launched it.  The last
+three lines are the kernels' JSON record (with each kernel's bound at 4K
+x 2: the larger of its bytes at 3.35 TB/s and its floating-point
+operations, float32 at 67 TFLOP/s, MUFU and conversions at a sixteenth of
+that, float64 at 34 TFLOP/s; beside it ``issue_ms``, its probe's SASS
+instructions at the card's issue rate; and, for ``weighted_row_sum``, the
+time of ``torch.mv``, the one PyTorch call that computes its function),
+the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
+{...}}``.  Exits with a non-zero code
 and prints no result when no CUDA card is visible or the package is
 missing.
 """
@@ -137,6 +141,14 @@ SASS_OPS = {
 }
 OPS_RATES = {"fp32": FP32_OPS_PER_S, "xu": XU_OPS_PER_S,
              "fp64": FP64_OPS_PER_S}
+# Issue slots, beside the bound and not part of it: an H100 SXM's 132 SMs
+# each issue 4 warp instructions a clock (one per scheduler), 32 threads
+# each, at the SM clock nvidia-smi gives as clocks.max.sm.  A probe's SASS
+# instructions of every kind (integer, memory, branch included) over that
+# rate is the least time a kernel running its code one pixel a thread can
+# take to issue them.
+SMS = 132
+WARP_ISSUE_PER_CLOCK = 4
 # Probe kernels for the operations term of the bounds: each runs one pixel
 # of a kernel's own per-pixel code (grade.cu's helpers and common.h's
 # functions, on the flagship's path: adjust contrast and vignette, grain
@@ -235,12 +247,17 @@ def _say(phase: str, **fields) -> None:
           flush=True)
 
 
-def _nvidia_smi() -> str:
+def _nvidia_smi(query: str = "name,power.limit",
+                fmt: str = "csv,noheader") -> str:
     result = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, check=True, timeout=60)
     return result.stdout.strip().splitlines()[0].strip()
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock (``clocks.max.sm``), in Hz."""
+    return float(_nvidia_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -294,13 +311,14 @@ def _start_sass_probe(folder: str):
 
 def _sass_counts(text: str, prefix: str = "probe_") -> dict:
     """Floating-point operations of each ``<prefix>*`` function of
-    ``cuobjdump -sass`` output, by instruction class (:data:`SASS_OPS`), on the
-    path these inputs take: from its entry to its first unpredicated EXIT
-    (out-of-line slow paths after it are not counted), leaving out every
-    stretch that a forward conditional branch jumps over and that holds a
-    loop (a backward branch): in the probes, the large-argument reduction
-    of sinf and cosf, which runs only for |x| > 105615 and never for
-    Box-Muller's angles in (0, 2 pi]."""
+    ``cuobjdump -sass`` output, by instruction class (:data:`SASS_OPS`),
+    and its ``instructions`` of every kind, on the path these inputs take:
+    from its entry to its first unpredicated EXIT (out-of-line slow paths
+    after it are not counted), leaving out every stretch that a forward
+    conditional branch jumps over and that holds a loop (a backward
+    branch): in the probes, the large-argument reduction of sinf and cosf,
+    which runs only for |x| > 105615 and never for Box-Muller's angles in
+    (0, 2 pi]."""
     functions, name = {}, None
     for line in text.splitlines():
         if "Function : " in line:
@@ -325,11 +343,14 @@ def _sass_counts(text: str, prefix: str = "probe_") -> dict:
                 if any(i[2] == "BRA" and i[3] is not None and i[3] < i[0]
                        for i in inside):
                     skipped.update(i[0] for i in inside)
-        total = dict.fromkeys(OPS_RATES, 0)
+        total = {**dict.fromkeys(OPS_RATES, 0), "instructions": 0}
         for address, predicate, opcode, _ in code:
             if opcode == "EXIT" and not predicate:
                 break
-            if address not in skipped and opcode in SASS_OPS:
+            if address in skipped:
+                continue
+            total["instructions"] += 1
+            if opcode in SASS_OPS:
                 kind, ops = SASS_OPS[opcode]
                 total[kind] += ops
         counts[name] = total
@@ -337,8 +358,8 @@ def _sass_counts(text: str, prefix: str = "probe_") -> dict:
 
 
 def _finish_sass_probe(cubin: str, process) -> dict:
-    """Each probe's operations by instruction class, above the ``base``
-    probe."""
+    """Each probe's operations by instruction class and its instructions,
+    above the ``base`` probe."""
     from vrgdg_tpu_torch.kernels import build
 
     log, _ = process.communicate(timeout=600)
@@ -357,14 +378,19 @@ def _finish_sass_probe(cubin: str, process) -> dict:
             for name, count in counts.items()}
 
 
-def kernel_bounds(shape, bundle_bytes: int, sass: dict) -> dict:
-    """Kernel -> (bound ms, "bytes" or "operations") at ``shape``: the
-    larger of the bytes each function must move (each input read once,
-    each output written once) at :data:`HBM_BYTES_PER_S`, and its
-    floating-point operations a pixel from ``sass`` (the probes of
-    :data:`SASS_PROBE_SOURCE`), each instruction class at its rate in
-    :data:`OPS_RATES`; the classes run side by side, so the slowest sets
-    the term.  ``weighted_row_sum`` runs one row a pixel: 24 FMAs."""
+def kernel_bounds(shape, bundle_bytes: int, sass: dict,
+                  sm_clock_hz: float) -> dict:
+    """Kernel -> (bound ms, "bytes" or "operations", issue ms or None) at
+    ``shape``.  The bound is the larger of the bytes each function must
+    move (each input read once, each output written once) at
+    :data:`HBM_BYTES_PER_S`, and its floating-point operations a pixel from
+    ``sass`` (the probes of :data:`SASS_PROBE_SOURCE`), each instruction
+    class at its rate in :data:`OPS_RATES`; the classes run side by side,
+    so the slowest sets the term.  ``weighted_row_sum`` runs one row a
+    pixel: 24 FMAs, and has no probe.  The issue ms, reported beside the
+    bound and not part of it, is a probe's instructions a pixel at the
+    card's issue rate (:data:`SMS` x :data:`WARP_ISSUE_PER_CLOCK` x 32
+    threads x ``sm_clock_hz``)."""
     from vrgdg_tpu_torch.kernels.grade_cuda import PHASE1_BLOCK
 
     batch, height, width = shape
@@ -381,18 +407,24 @@ def kernel_bounds(shape, bundle_bytes: int, sass: dict) -> dict:
         "film_grain": (24 * pixels, sass["film_grain"]),
         "weighted_row_sum": (100 * pixels, {"fp32": 48}),
     }
+    issue_rate = SMS * WARP_ISSUE_PER_CLOCK * 32 * sm_clock_hz
     bounds = {}
     for name, (nbytes, ops) in work.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         terms = {kind: ops.get(kind, 0) * pixels / rate * 1e3
                  for kind, rate in OPS_RATES.items()}
         ops_ms = max(terms.values())
+        instructions = ops.get("instructions")
+        issue_ms = (None if instructions is None
+                    else instructions * pixels / issue_rate * 1e3)
         bounds[name] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-                        else (ops_ms, "operations"))
+                        else (ops_ms, "operations")) + (issue_ms,)
         _say("bound", kernel=name, bytes_ms=f"{bytes_ms:.4f}",
              **{f"{kind}_ops": ops.get(kind, 0) for kind in OPS_RATES},
              **{f"{kind}_ms": f"{ms:.4f}" for kind, ms in terms.items()},
-             bound_by=bounds[name][1])
+             bound_by=bounds[name][1], instructions=instructions,
+             issue_ms="none" if issue_ms is None else f"{issue_ms:.4f}",
+             sm_clock_mhz=f"{sm_clock_hz / 1e6:.0f}")
     return bounds
 
 
@@ -788,10 +820,18 @@ def grain_path(device, lut, ref_stats, card: str) -> dict:
     return launches
 
 
+# launches of the layout run of phase 8: rowmajor and plane with grain off
+# and on, plane with emit="planes", then flat and rowmajor with adjust
+LAYOUT_RUN_LAUNCHES = {"grade_phase1": 4, "grade_phase2": 1,
+                       "grade_phase1_planes": 3, "grade_phase2_planes": 6}
+
+
 def layouts(device, config, lut, ref_stats, shapes, reps=10):
-    """Phase 8: the planes kernels against their plain versions, then the
-    ``"rowmajor"`` and ``"plane"`` layouts against ``"flat"``; returns
-    max errors, the timed shape's ms and the layout run's launches."""
+    """Phase 8: the planes kernels against their plain versions, and
+    ``grade_phase2_planes`` bit for bit against ``grade_phase2`` on the
+    same LAB, permuted; then the ``"rowmajor"`` and ``"plane"`` layouts
+    against ``"flat"``; returns max errors, the timed shape's ms and the
+    layout run's launches (:data:`LAYOUT_RUN_LAUNCHES`)."""
     from vrgdg_tpu_torch.kernels import build
     from vrgdg_tpu_torch.kernels import grade_cuda as gc
     from vrgdg_tpu_torch.ops.grade import _active_adjust, prepare_operands
@@ -825,19 +865,31 @@ def layouts(device, config, lut, ref_stats, shapes, reps=10):
         line = dict(shape=_label(shape),
                     lab_err=f"{lab_err:.3g}<={BOUNDS['lab']:g}",
                     coeff_err=f"{coeff_err:.3g}<={BOUNDS['coeff']:g}")
+        lab_bhwc = lab_p.permute(0, 2, 3, 1).contiguous()
         for label, intensity in (("off", 0.0), ("on", grain.intensity)):
             kw = dict(sharpen_strength=config.sharpen.strength,
                       grain_intensity=intensity,
                       saturation_mix=grain.saturation_mix,
                       seed_base=grain.seed)
             bound = BOUNDS[f"rgb_grain_{label}"]
-            err = _max_err(gc.phase2_planes(lab_p, coeff_p, **kw),
+            rgb_planes = gc.phase2_planes(lab_p, coeff_p, **kw)
+            err = _max_err(rgb_planes,
                            gc.phase2_planes_plain(lab_p, coeff_p, **kw))
             _check(f"{shape} planes phase 2 grain {label}", err, bound)
             errors["grade_phase2_planes"] = max(
                 errors["grade_phase2_planes"], err)
             line[f"phase2_err_grain_{label}"] = f"{err:.3g}<={bound:g}"
+            # one phase-2 body for both layouts: the same bits, permuted
+            rgb_flat = gc.phase2(lab_bhwc, coeff_p, **kw).permute(0, 3, 1, 2)
+            if not torch.equal(rgb_planes, rgb_flat):
+                raise AssertionError(
+                    f"{shape} grain {label}: grade_phase2_planes differs "
+                    "from grade_phase2, permuted, by "
+                    f"{_max_err(rgb_planes, rgb_flat)}")
+            del rgb_planes, rgb_flat
         _say("planes-vs-plain", **line)
+        _say("planes-vs-flat", shape=_label(shape),
+             grain_off="bit-identical", grain_on="bit-identical")
         shape_times = {
             "grade_phase1_planes": _timed_pair(
                 lambda: gc.phase1_planes(src, planes, domain, blend=blend,
@@ -855,13 +907,13 @@ def layouts(device, config, lut, ref_stats, shapes, reps=10):
                 for name, (_, p) in shape_times.items()})
         if tuple(shape) == TIMED_SHAPE:
             times = shape_times
-        del frames, src, planes, lab_k, lab_p, part_k, part_p
+        del frames, src, planes, lab_k, lab_p, part_k, part_p, lab_bhwc
         torch.cuda.empty_cache()
 
     # the layouts end to end at 4K x 2, on bench.py's fused_pallas2 stack
     # (no adjust: the plane layout has none)
     frames = _frames(TIMED_SHAPE, 450, device)
-    flat, launches = {}, {}
+    flat = {}
     for label, intensity in (("off", 0.0), ("on", grain.intensity)):
         kw = dict(blend=blend, match_strength=match,
                   sharpen_strength=config.sharpen.strength,
@@ -869,29 +921,34 @@ def layouts(device, config, lut, ref_stats, shapes, reps=10):
                   saturation_mix=grain.saturation_mix)
         flat[label] = (kw, gc.fused_post_gather(frames, *operands,
                                                 grain.seed, **kw))
+    # the layout run, every launch counted: the other two layouts,
+    # emit="planes", and flat and rowmajor with adjust
+    kw = flat["on"][0]
+    adjust = _active_adjust(config)
     build.reset_launch_counts()
     got = {(layout, label): gc.fused_post_gather(
-               frames, *operands, grain.seed, layout=layout, **kw)
-           for label, (kw, _) in flat.items()
+               frames, *operands, grain.seed, layout=layout, **layout_kw)
+           for label, (layout_kw, _) in flat.items()
            for layout in ("rowmajor", "plane")}
+    planes_out = gc.fused_post_gather(frames, *operands, grain.seed,
+                                      layout="plane", emit="planes", **kw)
+    with_adjust = {layout: gc.fused_post_gather(
+        frames, *operands, grain.seed, layout=layout, adjust=adjust, **kw)
+        for layout in ("flat", "rowmajor")}
     torch.cuda.synchronize()
-    launches = {name: build.LAUNCHES[name]
-                for name in ("grade_phase1_planes", "grade_phase2_planes")}
+    launches = {name: count for name, count in build.LAUNCHES.items()
+                if count}
+    if launches != LAYOUT_RUN_LAUNCHES:
+        raise AssertionError(f"the layout run launched {launches}; "
+                             f"expected {LAYOUT_RUN_LAUNCHES}")
     line = {}
     for (layout, label), out in got.items():
         bound = BOUNDS[f"rgb_grain_{label}"]
         err = _max_err(out, flat[label][1])
         _check(f"layout {layout} vs flat, grain {label}", err, bound)
         line[f"{layout}_err_grain_{label}"] = f"{err:.3g}<={bound:g}"
-    kw = flat["on"][0]
-    planes_out = gc.fused_post_gather(frames, *operands, grain.seed,
-                                      layout="plane", emit="planes", **kw)
     if not torch.equal(planes_out, got[("plane", "on")].permute(0, 3, 1, 2)):
         raise AssertionError("emit='planes' differs from the BHWC output")
-    adjust = _active_adjust(config)
-    with_adjust = {layout: gc.fused_post_gather(
-        frames, *operands, grain.seed, layout=layout, adjust=adjust, **kw)
-        for layout in ("flat", "rowmajor")}
     err = _max_err(with_adjust["rowmajor"], with_adjust["flat"])
     _check("layout rowmajor vs flat with adjust", err, BOUNDS["rgb_grain_on"])
     line["rowmajor_adjust_err_grain_on"] = f"{err:.3g}"
@@ -1264,13 +1321,16 @@ def main() -> int:
             for stem, b in built.items()})
     for stem, library in built.items():
         for line in library.log.splitlines():
-            if "registers" in line or "spill" in line:
+            # each kernel's name, then its registers, shared memory, spills
+            if any(key in line for key in ("entry function", "registers",
+                                           "spill")):
                 print(f"  ptxas {stem}:", line.strip(), flush=True)
     _say("sass-ops", **{name: ",".join(f"{k}={v}" for k, v in ops.items())
                         for name, ops in sass.items()})
 
     config, lut, ref_stats = _stack(device)
-    bounds = kernel_bounds(TIMED_SHAPE, lut.size ** 3 * 24 * 4, sass)
+    bounds = kernel_bounds(TIMED_SHAPE, lut.size ** 3 * 24 * 4, sass,
+                           _sm_clock_hz())
     errors, times = kernels_vs_plain(device, config, lut, ref_stats, SHAPES)
     determinism(device, config, lut, ref_stats)
     launches = main_path(device, config, lut, ref_stats, card)
@@ -1280,7 +1340,8 @@ def main() -> int:
         device, config, lut, ref_stats, SHAPES)
     errors.update(layout_errors)
     times.update(layout_times)
-    launches.update(layout_launches)
+    for name, count in layout_launches.items():
+        launches[name] = launches.get(name, 0) + count
     (errors["weighted_row_sum"], times["weighted_row_sum"],
      probe_launches, mv_ms) = probe(device)
     library_ms = {"weighted_row_sum": mv_ms}
@@ -1298,7 +1359,7 @@ def main() -> int:
          "replaces": replaces, "launches": launches[name],
          "max_abs_err": errors[name], "ms": times[name][0],
          "plain_ms": times[name][1], "bound_ms": bounds[name][0],
-         "bound_by": bounds[name][1],
+         "bound_by": bounds[name][1], "issue_ms": bounds[name][2],
          "library_ms": library_ms.get(name)}
         for name, (source, replaces) in SOURCES.items()]}
     print(json.dumps(record), flush=True)

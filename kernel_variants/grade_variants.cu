@@ -1,6 +1,6 @@
 // Timing variants of the fused grade's two main-path kernels on Hopper
 // (sm_90a): the asynchronous-copy designs that lost to grade_phase1 and
-// grade_phase2 on an H100.  This file includes the shipped grade.cu and
+// grade_phase2 on an H100, and phase 2 with mixed layouts.  This file includes the shipped grade.cu and
 // calls its per-pixel code (lattice_cell, gather_row, trilerp_blend,
 // apply_adjust, rgb_to_lab, add_sums, lab_to_rgb, unsharp3x3,
 // grain_field), so every variant computes the same function and writes
@@ -32,10 +32,36 @@
 // the next tile's halo into a second buffer while it filters this one
 // (80.8 KB of dynamic shared memory); without, each block takes one tile
 // (53.9 KB).
+//
+// Phase 2's layouts: the shipped grade_phase2_kernel<Layout> with a policy
+// that reads one layout and writes the other (LAB planes in, RGB BHWC out,
+// and BHWC in, planes out), so the planes kernel's cost over the BHWC one
+// splits into its read side and its write side.
 
 #include "../vrgdg_tpu_torch/kernels/csrc/grade.cu"
 
 namespace {
+
+struct PlanesLabBhwcRgb {
+  __device__ __forceinline__ static size_t lab(size_t pixel, int c,
+                                               size_t pixels) {
+    return PlanesLayout::lab(pixel, c, pixels);
+  }
+  __device__ __forceinline__ static size_t rgb(size_t pixel, int c,
+                                               size_t pixels) {
+    return BhwcLayout::rgb(pixel, c, pixels);
+  }
+};
+struct BhwcLabPlanesRgb {
+  __device__ __forceinline__ static size_t lab(size_t pixel, int c,
+                                               size_t pixels) {
+    return BhwcLayout::lab(pixel, c, pixels);
+  }
+  __device__ __forceinline__ static size_t rgb(size_t pixel, int c,
+                                               size_t pixels) {
+    return PlanesLayout::rgb(pixel, c, pixels);
+  }
+};
 
 __device__ __forceinline__ uint32_t smem_address(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -446,12 +472,24 @@ int vrgdg_variant_phase1(int variant, int device, const float* src,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Phase 2 variants: 0 persistent and double-buffered, 1 one tile a block.
+// Phase 2 variants: 0 persistent and double-buffered, 1 one tile a block
+// (BHWC in and out); the shipped kernel with 2 LAB planes in, RGB BHWC out,
+// 3 LAB BHWC in, RGB planes out.
 int vrgdg_variant_phase2(int variant, int device, const float* lab,
                          const float* coeff, int batch, int height,
                          int width, float sharpen, float grain, float mix,
                          float keep_mix, unsigned int seed_base, float* out,
                          void* stream) {
+  if (variant == 2) {
+    return launch_phase2<PlanesLabBhwcRgb>(device, lab, coeff, batch, height,
+                                           width, sharpen, grain, mix,
+                                           keep_mix, seed_base, out, stream);
+  }
+  if (variant == 3) {
+    return launch_phase2<BhwcLabPlanesRgb>(device, lab, coeff, batch, height,
+                                           width, sharpen, grain, mix,
+                                           keep_mix, seed_base, out, stream);
+  }
   VRGDG_SELECT_DEVICE(device);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles = ((width + kVarTileW - 1) / kVarTileW) *

@@ -13,9 +13,13 @@ versions within ``chip_smoke.BOUNDS`` (LAB and A/B for phase 1, RGB with
 grain off and on for phase 2), then timed in R rounds, each round the
 shipped kernel followed by every variant: CUDA-event ms over N launches
 after a warm-up, phase 1 on the smoke's seeded uniform frames and on its
-smooth frame, phase 2 on phase 1's LAB.  Prints the card's name and power
-limit, the ptxas lines of the variants, then one ``VARIANT`` JSON line per
-kernel and shape.  Needs a CUDA card.
+smooth frame, phase 2 on phase 1's LAB.  Phase 2's layouts: the shipped
+``grade_phase2`` (BHWC) and ``grade_phase2_planes`` (channel planes) and the
+same body reading one layout and writing the other, each bit for bit
+against ``grade_phase2`` and timed in the same rounds, grain off and on, so
+the planes kernel's extra time splits into its reads and its writes.
+Prints the card's name and power limit, the ptxas lines of the variants,
+then one ``VARIANT`` JSON line per kernel and shape.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +40,10 @@ PHASE1_VARIANTS = ("ring_t256_p4_s3", "ring_t128_p4_s3", "ring_t256_p2_s3",
                    "ring_t512_p1_s2", "direct_t256_p4")
 PHASE2_VARIANTS = ("tiles64x32_persistent_double_buffer",
                    "tiles64x32_one_per_block")
+# the shipped phase-2 body with mixed layouts: name -> (launcher's variant,
+# LAB in planes, RGB out in planes)
+LAYOUT_VARIANTS = {"planes_lab_bhwc_rgb": (2, True, False),
+                   "bhwc_lab_planes_rgb": (3, False, True)}
 SHAPES = ((2, 2160, 3840), (8, 1080, 1920))
 
 
@@ -216,9 +224,71 @@ def main(argv=None) -> int:
                      "shape": label, "ms": times[name]["grain_on"],
                      **(errors[name] if name != "shipped" else {})}),
                     flush=True)
+            layout_times(lib, cs, args, shape, lab_p, coeff_p, config, stream)
             del frames, smooth, lab_p, lab_k
             torch.cuda.empty_cache()
     return 0
+
+
+def layout_times(lib, cs, args, shape, lab, coeff, config, stream) -> None:
+    """Phase 2's layouts at ``shape`` on BHWC ``lab``: each bit for bit
+    against the shipped ``grade_phase2``, then timed in rounds, grain off
+    and on; one ``VARIANT`` line each."""
+    import torch
+
+    from vrgdg_tpu_torch.kernels import grade_cuda as gc
+
+    grain = config.grain
+    lab_planes = lab.permute(0, 3, 1, 2).contiguous()
+    batch, height, width, _ = lab.shape
+
+    def kwargs(intensity):
+        return dict(sharpen_strength=config.sharpen.strength,
+                    grain_intensity=intensity,
+                    saturation_mix=grain.saturation_mix, seed_base=grain.seed)
+
+    def mixed(index, planes_in, planes_out, intensity):
+        out = torch.empty((batch, 3, height, width) if planes_out
+                          else (batch, height, width, 3), device=lab.device)
+        src = lab_planes if planes_in else lab
+        _check(lib, lib.vrgdg_variant_phase2(
+            index, lab.device.index, src.data_ptr(), coeff.data_ptr(), batch,
+            height, width, config.sharpen.strength, intensity,
+            grain.saturation_mix, 1.0 - grain.saturation_mix,
+            grain.seed & 0xFFFFFFFF, out.data_ptr(), stream), str(index))
+        return out.permute(0, 2, 3, 1) if planes_out else out
+
+    # each returns BHWC (a view of planes output)
+    runs = {"shipped_bhwc": lambda i: gc.phase2(lab, coeff, **kwargs(i)),
+            "shipped_planes": lambda i: gc.phase2_planes(
+                lab_planes, coeff, **kwargs(i)).permute(0, 2, 3, 1)}
+    for name, (index, planes_in, planes_out) in LAYOUT_VARIANTS.items():
+        runs[name] = (lambda v, a, b: lambda i: mixed(v, a, b, i))(
+            index, planes_in, planes_out)
+    tags = (("off", 0.0), ("on", grain.intensity))
+    for tag, intensity in tags:
+        want = gc.phase2(lab, coeff, **kwargs(intensity))
+        plain = gc.phase2_plain(lab, coeff, **kwargs(intensity))
+        for name, run in runs.items():
+            got = run(intensity)
+            cs._check(f"{name} grain {tag}", cs._max_err(got, plain),
+                      cs.BOUNDS[f"rgb_grain_{tag}"])
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} grain {tag} differs from the "
+                                     "shipped grade_phase2")
+    times = {name: {tag: [] for tag, _ in tags} for name in runs}
+    for _ in range(args.rounds):
+        for name, run in runs.items():
+            for tag, intensity in tags:
+                times[name][tag].append(cs._cuda_ms(
+                    lambda: run(intensity), args.reps))
+    for name in runs:
+        print("VARIANT " + json.dumps(
+            {"kernel": "grade_phase2_layouts", "variant": name,
+             "shape": cs._label(shape), "bit_identical_to_grade_phase2": True,
+             "ms_grain_off": times[name]["off"],
+             "ms_grain_on": times[name]["on"]}), flush=True)
+    del lab_planes
 
 
 if __name__ == "__main__":

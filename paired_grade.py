@@ -8,13 +8,16 @@ Each round runs A, B, B, A, each turn in a fresh process whose
 from the checkout, while the frames, the stack, the timers and the main
 path come from the ``chip_smoke.py`` beside this script, so both sides
 are driven by the same code.  A turn prints, as one ``KERNELS`` JSON line,
-the package it ran and the CUDA-event ms of ``grade_phase1`` and
-``grade_phase2`` (20 launches after a warm-up) at 4K x 2 and 1080p x 8 on
-the smoke's seeded uniform frames and, for phase 1, on its smooth frame
-(a gradient plus +-2 levels of noise), and of a ``copy_`` of the 4K x 2
-batch; then the smoke's fused main path (48 frames of 4K at batch 2, 100
-of 1080p at batch 8) with its fps, device ms per frame and the device-time
-breakdown of one profiled pass.  Compare two versions only within one call
+the package it ran and the CUDA-event ms (20 launches after a warm-up) at
+4K x 2 and 1080p x 8 of ``grade_phase1`` on the smoke's seeded uniform
+frames and on its smooth frame (a gradient plus +-2 levels of noise), of
+``grade_phase2`` on phase 1's LAB, of ``grade_phase2_planes`` on the same
+LAB permuted to channel planes, and of ``fused_post_gather`` with
+``layout="rowmajor"`` (phase 1, a permute, ``grade_phase2_planes``; grain
+on, no adjust), and of a ``copy_`` of the 4K x 2 batch; then the smoke's
+fused main path (48 frames of 4K at batch 2, 100 of 1080p at batch 8)
+with its fps, device ms per frame and the device-time breakdown of one
+profiled pass.  Compare two versions only within one call
 of this script.  Needs a CUDA card.
 """
 
@@ -85,11 +88,22 @@ def _turn(root: str) -> None:
                               adjust=adjust), REPS)
         times[f"grade_phase2_{label}"] = cs._cuda_ms(
             lambda: gc.phase2(lab, coeff, **kw), REPS)
+        lab_planes = lab.permute(0, 3, 1, 2).contiguous()
+        times[f"grade_phase2_planes_{label}"] = cs._cuda_ms(
+            lambda: gc.phase2_planes(lab_planes, coeff, **kw), REPS)
+        times[f"layout_rowmajor_{label}"] = cs._cuda_ms(
+            lambda: gc.fused_post_gather(
+                frames, table, dmin, dmax, ref_mean, ref_std, grain.seed,
+                blend=blend, match_strength=config.color_match.match_strength,
+                sharpen_strength=config.sharpen.strength,
+                grain_intensity=grain.intensity,
+                saturation_mix=grain.saturation_mix, layout="rowmajor"),
+            REPS)
         if shape == SHAPES[0]:
             copy = torch.empty_like(frames)
             times[f"copy_{label}"] = cs._cuda_ms(
                 lambda: copy.copy_(frames), REPS)
-        del frames, smooth, lab
+        del frames, smooth, lab, lab_planes
         torch.cuda.empty_cache()
     print("KERNELS " + json.dumps(times), flush=True)
     cs.main_path(device, config, lut, ref_stats, card)

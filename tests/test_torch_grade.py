@@ -391,7 +391,10 @@ def test_smoke_sass_count_prices_float_instructions_by_class():
     """The operations term of chip_smoke.py's bounds: floating-point SASS
     instructions only (FFMA and DFMA as two), by instruction class, up to the
     first unpredicated EXIT, skipping a forward-branched loop (sinf's
-    large-argument reduction) and functions that are not probes."""
+    large-argument reduction) and functions that are not probes.  Beside
+    the bound, every instruction on that path (integer, branch included)
+    at the card's issue rate: 132 SMs x 4 warp instructions x 32 threads a
+    clock."""
     smoke = _chip_smoke()
     sass = """
         Function : probe_x
@@ -410,15 +413,22 @@ def test_smoke_sass_count_prices_float_instructions_by_class():
         Function : _ZN_grade_phase1_kernel
         /*0000*/                   FFMA R2, R3, R4, R5 ;
 """
+    # MUFU, FFMA, FADD, BRA, DFMA, F2F, IMAD: the loop and EXIT left out
     assert smoke._sass_counts(sass) == {
-        "x": {"fp32": 3, "xu": 2, "fp64": 2}}
+        "x": {"fp32": 3, "xu": 2, "fp64": 2, "instructions": 7}}
+    clock = 1.98e9
     bounds = smoke.kernel_bounds(
         (2, 2160, 3840), 33 ** 3 * 96,
-        {name: {"fp32": 400, "xu": 200, "fp64": 0}
+        {name: {"fp32": 400, "xu": 200, "fp64": 0, "instructions": 600}
          for name in ("grade_phase1", "grade_phase1_planes",
-                      "grade_phase2", "film_grain")})
+                      "grade_phase2", "film_grain")}, clock)
     pixels = 2 * 2160 * 3840
+    issue_ms = 600 * pixels / (132 * 4 * 32 * clock) * 1e3
     assert bounds["grade_phase2"] == (
-        pytest.approx(200 * pixels / smoke.XU_OPS_PER_S * 1e3), "operations")
+        pytest.approx(200 * pixels / smoke.XU_OPS_PER_S * 1e3), "operations",
+        pytest.approx(issue_ms))
+    assert bounds["grade_phase2_planes"] == bounds["grade_phase2"]
+    assert bounds["film_grain"][2] == pytest.approx(issue_ms)
     assert bounds["weighted_row_sum"] == (
-        pytest.approx(100 * pixels / smoke.HBM_BYTES_PER_S * 1e3), "bytes")
+        pytest.approx(100 * pixels / smoke.HBM_BYTES_PER_S * 1e3), "bytes",
+        None)

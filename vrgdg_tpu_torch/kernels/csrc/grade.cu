@@ -6,17 +6,21 @@
 //   read straight from the (N^3, 24) corner bundle, the strength blend,
 //   the elementwise adjust sliders, RGB -> CIELAB, and per-chunk float64
 //   sums of L, a, b and their squares for the colour-match statistics.
-// - grade_phase2 replaces grade_pallas.py::_phase2_flat_kernel: the
-//   per-frame affine LAB transfer, LAB -> RGB, the 3x3 zero-border box
-//   unsharp and the Philox4x32-10 film grain, BHWC in and out.
-// - grade_phase1_planes (replaces grade_pallas.py::_phase1_kernel) and
-//   grade_phase2_planes (replaces ::_phase2_kernel) run the same math over
-//   channel planes for the "plane" and "rowmajor" layouts, off the main
-//   path: phase 1 fed by corner-major planes (24, B, H*W) that the wrapper
-//   gathers with torch indexing, phase 2 over (B, 3, H, W) planes.  They
-//   keep the first port's one-pixel-per-thread form; phase 1 planes writes
-//   grade_phase1's per-chunk partials rows.  All four share common.h's
-//   colour conversions, so every layout computes LAB and RGB alike.
+// - grade_phase2 replaces grade_pallas.py::_phase2_flat_kernel and
+//   grade_phase2_planes replaces ::_phase2_kernel: the per-frame affine LAB
+//   transfer, LAB -> RGB, the 3x3 zero-border box unsharp and the
+//   Philox4x32-10 film grain.  Phase 2 has one body for both layouts,
+//   grade_phase2_kernel<Layout>: BHWC in and out for grade_phase2, (B, 3,
+//   H, W) channel planes for grade_phase2_planes (the "rowmajor" and
+//   "plane" layouts, off the main path); the two differ only in where
+//   channel c of a pixel lies, so they give the same bits, permuted.
+// - grade_phase1_planes (replaces grade_pallas.py::_phase1_kernel) runs
+//   phase 1's math without adjust for the "plane" layout, fed by
+//   corner-major planes (24, B, H*W) that the wrapper gathers with torch
+//   indexing.  It keeps the first port's one-pixel-per-thread form and
+//   writes grade_phase1's per-chunk partials rows.  All the kernels share
+//   common.h's colour conversions, so every layout computes LAB and RGB
+//   alike.
 //
 // What bounds the two main-path kernels on an H100.  Each moves 24 bytes
 // of HBM a pixel (12 in, 12 out): 0.12 ms for a 4K x 2 batch at 3.35 TB/s,
@@ -39,16 +43,23 @@
 //   order, with no atomics (the first port reduced every 256 pixels).
 //   Loads and stores are per pixel, so a frame's 16-byte (mis)alignment
 //   does not matter.
-// - grade_phase2: a 32 x 64 output tile a block (34 x 66 halo: 1.10 LAB ->
-//   RGB conversions per output pixel; the first port's 32 x 8 tile paid
-//   1.33), the RGB halo in shared memory as three channel planes, and each
-//   thread filtering an 8-row column strip with a 3 x 3 window per channel
-//   sliding down the strip in registers, the nine taps summed row by row,
-//   left to right, as ops/sharpen.py sums them.  Out-of-frame halo entries
-//   are RGB 0, the zero border.  The grain is common.h's grain_field,
-//   unchanged.  TMA is not used for the halo: a tensor map needs a row
-//   pitch (3W floats) that is a multiple of 16 bytes, which frames of a
-//   width not divisible by 4 do not have.
+// - phase 2 (both layouts): a 32 x 64 output tile a block (34 x 66 halo:
+//   1.10 LAB -> RGB conversions per output pixel; the first port's 32 x 8
+//   tile paid 1.33), the RGB halo in shared memory as three channel
+//   planes, and each thread filtering an 8-row column strip with a 3 x 3
+//   window per channel sliding down the strip in registers, the nine taps
+//   summed row by row, left to right, as ops/sharpen.py sums them.
+//   Out-of-frame halo entries are RGB 0, the zero border.  The grain is
+//   common.h's grain_field, unchanged.  TMA is not used for the halo: a
+//   tensor map needs a row pitch (3W floats in BHWC, W in planes) that is
+//   a multiple of 16 bytes, which frames of a width not divisible by 4 do
+//   not have.  The planes instantiation holds its stores' plane offsets
+//   (64-bit multiples of H x W) in registers: 55 against the BHWC one's 48,
+//   so 32 warps an SM, not 40.  __launch_bounds__(256, 5) would cap it at
+//   48 but spills.  Its extra time over the BHWC one is on the write side:
+//   kernel_variants/grade_variants.py times the same body with LAB planes
+//   in and BHWC out about as fast as the BHWC kernel, and with BHWC in and
+//   planes out about as slow as the planes one.
 // - The asynchronous-copy designs lost to these on the card.  For phase 1:
 //   src streamed through a ring of shared-memory stages filled by
 //   cp.async.bulk with an mbarrier, 1, 2 or 4 pixels' gathers in flight a
@@ -85,16 +96,14 @@ constexpr int kAdjustOn = 1 << 10;
 constexpr int kChunkPixels = 8192;
 constexpr int kPhase1Threads = 512;
 
-// grade_phase2: output tile, threads a column, rows a thread.
+// phase 2: output tile, threads a column, rows a thread.
 constexpr int kTileW = 32;
 constexpr int kStripThreads = 8;
 constexpr int kStripRows = 8;
 constexpr int kTileH = kStripThreads * kStripRows;
 
-// the planes kernels: one pixel per thread
+// grade_phase1_planes: threads a block, one pixel per thread
 constexpr int kPlanesThreads = 256;
-constexpr int kPlanesTileW = 32;
-constexpr int kPlanesTileH = 8;
 
 constexpr float kInvNine = 1.0f / 9.0f;
 
@@ -377,8 +386,34 @@ grade_phase1_kernel(const float* __restrict__ src,
 }
 
 // ---------------------------------------------------------------------------
-// grade_phase2
+// phase 2: grade_phase2 (BHWC) and grade_phase2_planes (channel planes)
 // ---------------------------------------------------------------------------
+
+// Phase 2's addressing policies: where the LAB read (lab) and the RGB write
+// (rgb) of channel c of pixel p lie, counted from the first float of the
+// frame.  A frame holds 3 * pixels floats in both layouts, so frame f
+// starts at f * 3 * pixels: BHWC puts channel c of pixel p at (f * pixels
+// + p) * 3 + c, planes at (f * 3 + c) * pixels + p.
+struct BhwcLayout {
+  __device__ __forceinline__ static size_t lab(size_t pixel, int c,
+                                               size_t /*pixels*/) {
+    return pixel * 3 + c;
+  }
+  __device__ __forceinline__ static size_t rgb(size_t pixel, int c,
+                                               size_t pixels) {
+    return lab(pixel, c, pixels);
+  }
+};
+struct PlanesLayout {
+  __device__ __forceinline__ static size_t lab(size_t pixel, int c,
+                                               size_t pixels) {
+    return static_cast<size_t>(c) * pixels + pixel;
+  }
+  __device__ __forceinline__ static size_t rgb(size_t pixel, int c,
+                                               size_t pixels) {
+    return lab(pixel, c, pixels);
+  }
+};
 
 // Grid (ceil(W / kTileW), ceil(H / kTileH), B), block (kTileW,
 // kStripThreads).  The block converts its tile's (kTileH + 2) x (kTileW +
@@ -387,7 +422,10 @@ grade_phase1_kernel(const float* __restrict__ src,
 // filters column x0 + tx, rows y0 + kStripRows * ty .. + kStripRows - 1,
 // sliding a 3 x 3 window per channel down the strip.  coeff[b] = [A_L,
 // A_a, A_b, B_L, B_a, B_b] of the affine transfer lab' = A * lab + B; lab
-// and out are (B, H, W, 3).
+// and out are (B, H, W, 3) or (B, 3, H, W), as Layout says.  Loads and
+// stores are per pixel and channel, so no width or frame start needs an
+// alignment.
+template <typename Layout>
 __global__ void __launch_bounds__(kTileW * kStripThreads)
 grade_phase2_kernel(const float* __restrict__ lab,
                     const float* __restrict__ coeff, int height, int width,
@@ -399,6 +437,7 @@ grade_phase2_kernel(const float* __restrict__ lab,
   const int y0 = blockIdx.y * kTileH;
   const size_t pixels = static_cast<size_t>(height) * width;
   const float* frame_lab = lab + static_cast<size_t>(frame) * pixels * 3;
+  float* frame_out = out + static_cast<size_t>(frame) * pixels * 3;
   const float a[3] = {coeff[frame * 6], coeff[frame * 6 + 1],
                       coeff[frame * 6 + 2]};
   const float b[3] = {coeff[frame * 6 + 3], coeff[frame * 6 + 4],
@@ -413,10 +452,12 @@ grade_phase2_kernel(const float* __restrict__ lab,
     const int x = x0 + hx - 1;
     float rgb[3] = {0.0f, 0.0f, 0.0f};
     if (y >= 0 && y < height && x >= 0 && x < width) {
-      const float* px = frame_lab + (static_cast<size_t>(y) * width + x) * 3;
+      const size_t pixel = static_cast<size_t>(y) * width + x;
       float v[3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = px[c] * a[c] + b[c];
+      for (int c = 0; c < 3; ++c) {
+        v[c] = frame_lab[Layout::lab(pixel, c, pixels)] * a[c] + b[c];
+      }
       lab_to_rgb(v, rgb);
     }
 #pragma unroll
@@ -458,21 +499,25 @@ grade_phase2_kernel(const float* __restrict__ lab,
     const int y = y0 + top + row;
     if (y >= height) break;
     const size_t pixel = static_cast<size_t>(y) * width + x;
-    float* o = out + (static_cast<size_t>(frame) * pixels + pixel) * 3;
     if (grain > 0.0f) {
       float g[3];
       grain_field(key, static_cast<uint32_t>(pixel), mix, keep_mix, g);
 #pragma unroll
-      for (int c = 0; c < 3; ++c) o[c] = clip01(sharp[c] + g[c] * grain);
+      for (int c = 0; c < 3; ++c) {
+        frame_out[Layout::rgb(pixel, c, pixels)] =
+            clip01(sharp[c] + g[c] * grain);
+      }
     } else {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) o[c] = sharp[c];
+      for (int c = 0; c < 3; ++c) {
+        frame_out[Layout::rgb(pixel, c, pixels)] = sharp[c];
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// the planes kernels ("plane" / "rowmajor" layouts)
+// grade_phase1_planes ("plane" layout)
 // ---------------------------------------------------------------------------
 
 // Grid (ceil(H*W / kChunkPixels), B), kPlanesThreads threads looping over
@@ -523,85 +568,25 @@ grade_phase1_planes_kernel(const float* __restrict__ src,
                            6);
 }
 
-// Grid (ceil(W/32), ceil(H/8), B), block (32, 8).  Each block converts its
-// halo tile's LAB to clipped RGB once, into shared memory; out-of-frame
-// halo entries hold 0 (the zero border).  lab and out are (B, 3, H, W)
-// planes; the 9-tap order and the grain are grade_phase2's, so every
-// layout draws identical grain.
-__global__ void __launch_bounds__(kPlanesTileW * kPlanesTileH)
-grade_phase2_planes_kernel(const float* __restrict__ lab,
-                           const float* __restrict__ coeff, int height,
-                           int width, float sharpen, float grain, float mix,
-                           float keep_mix, uint32_t seed_base,
-                           float* __restrict__ out) {
-  __shared__ float tile[kPlanesTileH + 2][kPlanesTileW + 2][3];
-  const int frame = blockIdx.z;
-  const int x0 = blockIdx.x * kPlanesTileW;
-  const int y0 = blockIdx.y * kPlanesTileH;
-  const size_t pixels = static_cast<size_t>(height) * width;
-  const float a[3] = {coeff[frame * 6], coeff[frame * 6 + 1],
-                      coeff[frame * 6 + 2]};
-  const float b[3] = {coeff[frame * 6 + 3], coeff[frame * 6 + 4],
-                      coeff[frame * 6 + 5]};
-  auto at = [&](int c, size_t pixel) {
-    return (static_cast<size_t>(frame) * 3 + c) * pixels + pixel;
-  };
-
-  const int tid = threadIdx.y * kPlanesTileW + threadIdx.x;
-  for (int i = tid; i < (kPlanesTileH + 2) * (kPlanesTileW + 2);
-       i += kPlanesTileW * kPlanesTileH) {
-    const int ty = i / (kPlanesTileW + 2);
-    const int tx = i % (kPlanesTileW + 2);
-    const int y = y0 + ty - 1;
-    const int x = x0 + tx - 1;
-    float rgb[3] = {0.0f, 0.0f, 0.0f};
-    if (y >= 0 && y < height && x >= 0 && x < width) {
-      const size_t pixel = static_cast<size_t>(y) * width + x;
-      float v[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) v[c] = lab[at(c, pixel)] * a[c] + b[c];
-      lab_to_rgb(v, rgb);
-    }
-#pragma unroll
-    for (int c = 0; c < 3; ++c) tile[ty][tx][c] = rgb[c];
-  }
-  __syncthreads();
-
-  const int x = x0 + threadIdx.x;
-  const int y = y0 + threadIdx.y;
-  if (x >= width || y >= height) return;
-  const int ty = threadIdx.y + 1;
-  const int tx = threadIdx.x + 1;
-  float sharp[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float w[3][3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int d = 0; d < 3; ++d) w[r][d] = tile[ty + r - 1][tx + d - 1][c];
-    }
-    sharp[c] = unsharp3x3(w, sharpen);
-  }
-
-  const size_t pixel = static_cast<size_t>(y) * width + x;
-  if (grain > 0.0f) {
-    const uint32_t key = (seed_base + static_cast<uint32_t>(frame)) & kSeedMask;
-    float g[3];
-    grain_field(key, static_cast<uint32_t>(pixel), mix, keep_mix, g);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      out[at(c, pixel)] = clip01(sharp[c] + g[c] * grain);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) out[at(c, pixel)] = sharp[c];
-  }
-}
-
 unsigned chunks_of(int height, int width) {
   const long long pixels = static_cast<long long>(height) * width;
   return static_cast<unsigned>((pixels + kChunkPixels - 1) / kChunkPixels);
+}
+
+template <typename Layout>
+int launch_phase2(int device, const float* lab, const float* coeff,
+                  int batch, int height, int width, float sharpen,
+                  float grain, float mix, float keep_mix,
+                  unsigned int seed_base, float* out, void* stream) {
+  VRGDG_SELECT_DEVICE(device);
+  const dim3 block(kTileW, kStripThreads);
+  const dim3 grid((width + kTileW - 1) / kTileW,
+                  (height + kTileH - 1) / kTileH, batch);
+  grade_phase2_kernel<Layout><<<grid, block, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      lab, coeff, height, width, sharpen, grain, mix, keep_mix, seed_base,
+      out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -643,14 +628,9 @@ int vrgdg_grade_phase2(int device, const float* lab, const float* coeff,
                        int batch, int height, int width, float sharpen,
                        float grain, float mix, float keep_mix,
                        unsigned int seed_base, float* out, void* stream) {
-  VRGDG_SELECT_DEVICE(device);
-  const dim3 block(kTileW, kStripThreads);
-  const dim3 grid((width + kTileW - 1) / kTileW,
-                  (height + kTileH - 1) / kTileH, batch);
-  grade_phase2_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      lab, coeff, height, width, sharpen, grain, mix, keep_mix, seed_base,
-      out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_phase2<BhwcLayout>(device, lab, coeff, batch, height, width,
+                                   sharpen, grain, mix, keep_mix, seed_base,
+                                   out, stream);
 }
 
 int vrgdg_grade_phase2_planes(int device, const float* lab_planes,
@@ -659,15 +639,9 @@ int vrgdg_grade_phase2_planes(int device, const float* lab_planes,
                               float mix, float keep_mix,
                               unsigned int seed_base, float* out_planes,
                               void* stream) {
-  VRGDG_SELECT_DEVICE(device);
-  const dim3 block(kPlanesTileW, kPlanesTileH);
-  const dim3 grid((width + kPlanesTileW - 1) / kPlanesTileW,
-                  (height + kPlanesTileH - 1) / kPlanesTileH, batch);
-  grade_phase2_planes_kernel<<<grid, block, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      lab_planes, coeff, height, width, sharpen, grain, mix, keep_mix,
-      seed_base, out_planes);
-  return static_cast<int>(cudaGetLastError());
+  return launch_phase2<PlanesLayout>(device, lab_planes, coeff, batch,
+                                     height, width, sharpen, grain, mix,
+                                     keep_mix, seed_base, out_planes, stream);
 }
 
 int vrgdg_phase1_block_size() { return kChunkPixels; }

@@ -46,7 +46,9 @@ channel planes ``(B, 3, H, W)``:
   :func:`corner_planes` gathers with torch indexing outside the kernel;
   it writes phase 1's partials rows;
 - **phase 2 on planes** (``grade_phase2_planes``; replaces
-  ``vrgdg_tpu/kernels/grade_pallas.py:380`` ``_phase2_kernel``).
+  ``vrgdg_tpu/kernels/grade_pallas.py:380`` ``_phase2_kernel``): phase 2's
+  own body (one template in ``csrc/grade.cu``) reading and writing
+  ``(B, 3, H, W)`` planes, so it gives ``grade_phase2``'s bits, permuted.
 
 :func:`fused_post_gather` picks them with ``layout``: ``"flat"`` (phase 1
 -> phase 2, all BHWC), ``"rowmajor"`` (phase 1 -> planes -> phase 2 on
