@@ -44,7 +44,7 @@ Phases, one line each (any failure raises and the exit code is not 0):
 9. probe: ``python -m vrgdg_tpu_torch.tools.probe_transpose``'s run, and
    ``weighted_row_sum`` against its plain version at (4096, 24) and at
    4K x 2's pixel count;
-10. file: if cv2 imports, ``grade_video`` on a generated file;
+10. file: ``grade_video`` on a generated file (cv2 is required);
 11. resample: lanczos4 ``resample`` 1080p -> 2160x3840 on the card
     against the CPU (<= 1e-5) and cv2 (<= 1e-3), bit-identical with TF32
     turned on, its ms per frame beside the tap-gather form's;
@@ -56,9 +56,21 @@ Phases, one line each (any failure raises and the exit code is not 0):
 13. enhancer job: ``render_job`` on a generated 72-frame 1080p clip at
     12 fps to 4K in two segments, with its stage seconds and concat
     backend; a cancel -> resume on a small clip decodes byte for byte as
-    an uninterrupted run.
+    an uninterrupted run;
+14. images and compare (cv2 is required): ``render_compare`` on 4K x 8
+    batches on the card, all five modes, against the same function on the
+    CPU (side_by_side, slider, blink exact; overlay, difference <= 1e-6;
+    B at 1080p letterboxed onto 4K <= 1e-5), with CUDA-event ms per mode;
+    the three image appliers on a 4K PNG (timed, run twice, byte-identical
+    outputs) and at 1080p on the card and the CPU (one level on <= 0.1% of
+    values); the three previews of the 4K PNG and of a 1080p clip, and
+    ``delete_preview`` once; ``compare_images`` in each mode;
+    ``compare_videos`` side_by_side and blink on two 48-frame 1080p clips
+    (frame count, size, blink period), with processed fps and the
+    decode / device / encode split.  No TPU kernel lies on this path: its
+    run must launch none of the six.
 
-Each path (5, 7, 8's layout run, 9's probe run, 12) is driven with the
+Each path (5, 7, 8's layout run, 9's probe run, 12, 14) is driven with the
 launch counts set to 0 just before it and read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -106,6 +118,13 @@ ENHANCE = dict(upscale_resolution="4k", sharpen_strength=1.0,
 ENHANCE_RUN = (48, 1080, 1920)                        # frames, H, W
 ENHANCE_SIZE = (3840, 2160)                           # output W, H
 JOB_CLIP = (72, 12.0, (1920, 1080))                   # frames, fps, W x H
+# phase 14: compare renders on 4K x 8 batches (B also at 1080p, which
+# letterboxes), still images at 4K (and at 1080p for the CPU check), and
+# two 48-frame 1080p clips at 24 fps for compare_videos
+COMPARE_BATCH = (8, 2160, 3840)
+LETTERBOX_B = (1080, 1920)
+STILL_SIZES = ((2160, 3840), (1080, 1920))
+COMPARE_CLIP = (48, 24.0, (1920, 1080))
 # kernel vs plain on the card: nvcc contracts a*b+c into FMAs and its
 # powf/cbrtf/logf differ from the plain ops' by an ulp or two.  Measured
 # on an H100 (700 W): LAB 1.2e-4, A/B 9.5e-7, RGB 1.07e-5 with grain off
@@ -115,7 +134,8 @@ JOB_CLIP = (72, 12.0, (1920, 1080))                   # frames, fps, W x H
 # orders; against cv2: the JAX suite's cv2 budget.
 BOUNDS = {"lab": 5e-4, "coeff": 1e-5, "rgb_grain_off": 2e-5,
           "rgb_grain_on": 5e-5, "probe": 1e-4, "resample_cpu": 1e-5,
-          "resample_cv2": 1e-3}
+          "resample_cv2": 1e-3, "compare_blend": 1e-6,
+          "compare_letterbox": 1e-5}
 # NVIDIA's H100 SXM data sheet (at the 700 W limit): HBM bandwidth, and
 # the float32 and float64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1011,12 +1031,9 @@ def probe(device, reps=10):
 
 
 def file_phase(device, config, lut) -> None:
-    """Phase 10: ``grade_video`` on a generated clip, if cv2 imports."""
-    try:
-        import cv2
-    except ImportError:
-        _say("file", ran="no", reason="cv2 is not importable on this machine")
-        return
+    """Phase 10: ``grade_video`` on a generated clip."""
+    import cv2
+
     from vrgdg_tpu_torch.api import appliers
 
     with tempfile.TemporaryDirectory() as folder:
@@ -1042,7 +1059,7 @@ def file_phase(device, config, lut) -> None:
         if (result["processed_frames"] != 30 or result["width"] != 640
                 or result["height"] != 360):
             raise AssertionError(f"grade_video: {result}")
-        _say("file", ran="yes", frames=result["processed_frames"],
+        _say("file", frames=result["processed_frames"],
              size="640x360", encoder=result["encoder"])
 
 
@@ -1290,6 +1307,290 @@ def enhancer_job(device) -> None:
              concat=resumed["encode_backend"])
 
 
+def _levels_apart(label: str, got: np.ndarray, want: np.ndarray) -> dict:
+    """Two uint8 images at most one level apart on at most 0.1% of
+    values (PERF.md section 2's rule for the card against the CPU)."""
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    share = float((diff > 0).mean())
+    if got.shape != want.shape or diff.max() > 1 or share > 1e-3:
+        raise AssertionError(f"{label}: shapes {got.shape} {want.shape}, "
+                             f"max {diff.max()} levels, {share:.2e} differ")
+    return {"max_level_diff": int(diff.max()),
+            "differing_share": f"{share:.2e}<=1e-3"}
+
+
+def _render_compare_checks(device, reps=5) -> None:
+    """Phase 14a: every compare mode at 4K x 8 on the card against the
+    CPU, and its CUDA-event ms; then B at 1080p letterboxed onto A."""
+    from vrgdg_tpu_torch.ops import compare
+
+    count, height, width = COMPARE_BATCH
+    rng = np.random.default_rng(51)
+    host = [torch.from_numpy(rng.integers(0, 256, (count, h, w, 3),
+                                          np.uint8)).float() / 255.0
+            for h, w in ((height, width), (height, width), LETTERBOX_B)]
+    a_cpu, b_cpu, small_cpu = host
+    a, b, small = (t.to(device) for t in host)
+    options = dict(slider_position=0.37, overlay_opacity=0.3,
+                   difference_gain=4.0, fps=24.0, blink_speed=3.0,
+                   frame_start=5)
+    for mode in compare.MODES:
+        got = compare.render_compare(a, b, mode, **options).cpu()
+        want = compare.render_compare(a_cpu, b_cpu, mode, **options)
+        if mode in ("overlay", "difference"):
+            err = _max_err(got, want)
+            _check(f"compare {mode} card vs CPU", err,
+                   BOUNDS["compare_blend"])
+            agreement = f"{err:.3g}<={BOUNDS['compare_blend']:g}"
+        elif torch.equal(got, want):
+            agreement = "bit-identical"
+        else:
+            raise AssertionError(f"compare {mode}: card differs from CPU by "
+                                 f"{_max_err(got, want)}")
+        del got, want
+        ms = _cuda_ms(lambda: compare.render_compare(a, b, mode, **options),
+                      reps)
+        # bytes the render moves: both inputs read, the output written
+        out_bytes = a.numel() * 4 * (2 if mode == "side_by_side" else 1)
+        _say("compare-mode", mode=mode, shape=_label(COMPARE_BATCH),
+             agreement=agreement, ms=f"{ms:.4f}",
+             gb_per_s=f"{(2 * a.numel() * 4 + out_bytes) / ms / 1e6:.1f}")
+    got = compare.align_pair(a, small)[1].cpu()
+    err = _max_err(got, compare.align_pair(a_cpu, small_cpu)[1])
+    _check("letterbox card vs CPU", err, BOUNDS["compare_letterbox"])
+    del got
+    ms = _cuda_ms(lambda: compare.render_compare(a, small, "side_by_side"),
+                  reps)
+    _say("compare-letterbox", b=_label((count, *LETTERBOX_B)),
+         onto=_label(COMPARE_BATCH), method="bicubic",
+         err=f"{err:.3g}<={BOUNDS['compare_letterbox']:g}",
+         side_by_side_ms=f"{ms:.4f}")
+    del a, b, small
+    torch.cuda.empty_cache()
+
+
+def _still(path: str, height: int, width: int, seed: int) -> str:
+    """A seeded PNG: a gradient with noise, as a photo's levels spread."""
+    from vrgdg_tpu_torch.runtime import image_io
+
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    base = np.stack([xx / width, yy / height, (xx + yy) / (width + height)],
+                    -1) * 200.0
+    noise = np.random.default_rng(seed).normal(0, 12, (height, width, 3))
+    return image_io.write_rgb(path, np.clip(base + noise + 28, 0, 255)
+                              .astype(np.uint8))
+
+
+def _image_appliers(device, folder: str) -> None:
+    """Phase 14b: the three image appliers on a 4K PNG on the card, run
+    twice (byte-identical), and at 1080p on the card and the CPU."""
+    import cv2
+
+    from vrgdg_tpu_torch.api import appliers
+
+    runs = {
+        "lut": lambda src, out, dev: appliers.apply_lut_to_image(
+            src, FLAGSHIP["lut_name"], out, FLAGSHIP["lut_strength"],
+            device=dev),
+        "grain": lambda src, out, dev: appliers.apply_film_grain_to_image(
+            src, out, FLAGSHIP["grain_intensity"],
+            FLAGSHIP["saturation_mix"], FLAGSHIP["seed"], device=dev),
+        "adjust": lambda src, out, dev: appliers.apply_adjust_to_image(
+            src, out, FLAGSHIP["adjust"], device=dev),
+    }
+    for (height, width), seed in zip(STILL_SIZES, (61, 62)):
+        source = _still(os.path.join(folder, f"still_{height}.png"), height,
+                        width, seed)
+        for name, run in runs.items():
+            outs = [os.path.join(folder, f"{name}_{height}_{k}.png")
+                    for k in ("card", "again", "cpu")]
+            started = time.perf_counter()
+            first = run(source, outs[0], device)
+            wall = (time.perf_counter() - started) * 1e3
+            second = run(source, outs[1], device)
+            with open(outs[0], "rb") as x, open(outs[1], "rb") as y:
+                if x.read() != y.read():
+                    raise AssertionError(f"image {name} at {height}p: reruns "
+                                         "differ")
+            line = dict(applier=name, size=f"{height}x{width}",
+                        device=first["device"].replace(" ", "_"),
+                        ms=f"{first['elapsed_seconds'] * 1e3:.3f}",
+                        wall_ms=f"{wall:.3f}",
+                        rerun_ms=f"{second['elapsed_seconds'] * 1e3:.3f}",
+                        rerun_stage_seconds=json.dumps(
+                            second["stage_seconds"], separators=(",", ":")),
+                        rerun="byte-identical")
+            if (height, width) != STILL_SIZES[0]:
+                cpu = run(source, outs[2], "cpu")
+                line.update(cpu_ms=f"{cpu['elapsed_seconds'] * 1e3:.3f}",
+                            **_levels_apart(f"image {name} card vs CPU",
+                                            cv2.imread(outs[0]),
+                                            cv2.imread(outs[2])))
+            _say("image-applier", **line)
+    _image_breakdown(device, os.path.join(
+        folder, f"still_{STILL_SIZES[0][0]}.png"))
+
+
+def _image_breakdown(device, source: str, reps: int = 3) -> None:
+    """The LUT image applier's steps at 4K, each timed alone (host clock,
+    the device synchronized after each device step), median of
+    ``reps``."""
+    from vrgdg_tpu_torch.api import appliers
+    from vrgdg_tpu_torch.runtime import image_io
+
+    effect, _ = appliers._lut_effect(FLAGSHIP["lut_name"],
+                                     FLAGSHIP["lut_strength"], None, device)
+    steps: dict[str, list[float]] = {}
+
+    def timed(name, fn):
+        started = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        steps.setdefault(name, []).append(
+            (time.perf_counter() - started) * 1e3)
+        return value
+
+    with tempfile.TemporaryDirectory() as folder:
+        for _ in range(reps):
+            u8 = timed("read", lambda: image_io.read_rgb(source))
+            array = timed("divide", lambda: u8.astype(np.float32)[None]
+                          / 255.0)
+            x = timed("upload", lambda: torch.from_numpy(array).to(device))
+            y = timed("effect", lambda: effect(x, 0))
+            out = timed("download", lambda: y.cpu().numpy())
+            q = timed("quantize", lambda: np.clip(out[0] * 255.0, 0, 255)
+                      .astype(np.uint8))
+            timed("write_png", lambda: image_io.write_rgb(
+                os.path.join(folder, "out.png"), q))
+    _say("image-breakdown", applier="lut",
+         size=_label(STILL_SIZES[0]), reps=reps,
+         **{f"{name}_ms": f"{float(np.median(v)):.3f}"
+            for name, v in steps.items()})
+
+
+def _previews(device, folder: str, clip: str) -> None:
+    """Phase 14c: the three previews of the 4K PNG and of the first frame
+    of a 1080p clip; ``delete_preview`` removes an after file once."""
+    import cv2
+
+    from vrgdg_tpu_torch.api import appliers, paths
+
+    base = os.path.join(folder, "out")
+    (height, width), (clip_w, clip_h) = STILL_SIZES[0], COMPARE_CLIP[2]
+    media = {"png": (os.path.join(folder, f"still_{height}.png"),
+                     (height, width)),
+             "clip": (clip, (clip_h, clip_w))}
+    for label, (path, size) in media.items():
+        made = {
+            "lut": appliers.preview_lut_on_media(
+                path, FLAGSHIP["lut_name"], FLAGSHIP["lut_strength"],
+                base=base, device=device),
+            "grain": appliers.preview_film_grain_on_media(
+                path, FLAGSHIP["grain_intensity"],
+                FLAGSHIP["saturation_mix"], FLAGSHIP["seed"], base=base,
+                device=device),
+            "adjust": appliers.preview_adjust_on_media(
+                path, FLAGSHIP["adjust"], base=base, device=device),
+        }
+        for name, pair in made.items():
+            for key in ("before", "after"):
+                image = cv2.imread(pair[key])
+                if image is None or image.shape[:2] != size \
+                        or os.path.dirname(pair[key]) != paths.preview_root(
+                            base):
+                    raise AssertionError(f"preview {name} of {label}: "
+                                         f"{key} {pair[key]}")
+        after = made["adjust"]["after"]
+        if not appliers.delete_preview(after, base) or os.path.exists(after) \
+                or appliers.delete_preview(after, base):
+            raise AssertionError("delete_preview did not remove the file "
+                                 "exactly once")
+        _say("previews", media=label, size=_label(size),
+             made=",".join(made), jpeg="before+after",
+             delete_preview="once")
+
+
+def _compare_media(device, folder: str, clips: tuple[str, str]) -> None:
+    """Phase 14d: ``compare_images`` in every mode on 4K PNGs, and
+    ``compare_videos`` side_by_side and blink on two 1080p clips."""
+    import cv2
+
+    from vrgdg_tpu_torch.api import compare
+    from vrgdg_tpu_torch.ops.compare import MODES, blink_period
+    from vrgdg_tpu_torch.runtime import video_io
+
+    (height, width), _ = STILL_SIZES
+    a = os.path.join(folder, f"still_{height}.png")
+    b = _still(os.path.join(folder, "still_b.png"), height, width, 63)
+    for mode in MODES:
+        result = compare.compare_images(
+            a, b, mode, os.path.join(folder, f"cmp_{mode}.png"),
+            device=device)
+        want_w = 2 * width + 2 if mode in ("side_by_side", "blink") else width
+        shape = cv2.imread(result["output"]).shape
+        if (result["width"], result["height"]) != (want_w, height) \
+                or shape != (height, want_w, 3):
+            raise AssertionError(f"compare_images {mode}: {result}, {shape}")
+        _say("compare-image", mode=mode, size=f"{height}x{want_w}",
+             ms=f"{result['elapsed_seconds'] * 1e3:.3f}")
+
+    frames, fps, (clip_w, clip_h) = COMPARE_CLIP
+    source_a, source_b = _decode(clips[0]), _decode(clips[1])
+    for mode, blink_speed in (("side_by_side", 1.0), ("blink", 1.0)):
+        result = compare.compare_videos(
+            clips[0], clips[1], mode, os.path.join(folder, f"cmp_{mode}.mp4"),
+            blink_speed=blink_speed, batch_size=8, device=device)
+        want_w = 2 * clip_w + 2 if mode == "side_by_side" else clip_w
+        meta = video_io.probe_video(result["output"])
+        if (result["processed_frames"], meta["frame_count"], meta["width"],
+                meta["height"]) != (frames, frames, want_w, clip_h):
+            raise AssertionError(f"compare_videos {mode}: {result}, {meta}")
+        line = {}
+        if mode == "blink":
+            period = blink_period(fps, blink_speed)
+            out = _decode(result["output"]).astype(np.int16)
+            for index in range(frames):
+                to_a = np.abs(out[index] - source_a[index]).mean()
+                to_b = np.abs(out[index] - source_b[index]).mean()
+                if (to_a < to_b) != ((index // period) % 2 == 0):
+                    raise AssertionError(f"blink frame {index} does not "
+                                         f"follow a period of {period}")
+            line["period"] = f"{period}(checked)"
+        _say("compare-video", mode=mode, frames=frames,
+             size=f"{clip_h}x{want_w}", **line,
+             processed_fps=f"{result['processed_fps']:.2f}",
+             stage_seconds=json.dumps(
+                 {k: round(v, 3) for k, v in result["stage_seconds"].items()},
+                 separators=(",", ":")),
+             encoder=result["encoder"])
+
+
+def images_and_compare(device) -> None:
+    """Phase 14: the still-image, preview and compare surface.  No TPU
+    kernel lies on it, so its run (counts set to 0 just before, read just
+    after) must launch none of the six kernels."""
+    import cv2  # noqa: F401  (required: the phase fails without it)
+
+    from vrgdg_tpu_torch.kernels import build
+
+    _render_compare_checks(device)
+    frames, fps, (clip_w, clip_h) = COMPARE_CLIP
+    with tempfile.TemporaryDirectory() as folder:
+        clips = tuple(_write_clip(os.path.join(folder, name), frames, fps,
+                                  clip_w, clip_h, seed)
+                      for name, seed in (("a.mp4", 71), ("b.mp4", 72)))
+        build.reset_launch_counts()
+        _image_appliers(device, folder)
+        _previews(device, folder, clips[0])
+        _compare_media(device, folder, clips)
+        launched = {name: count for name, count in build.LAUNCHES.items()
+                    if count}
+    if launched:
+        raise AssertionError(f"the images and compare path launched {launched}")
+    _say("images-and-compare", kernels_launched=0)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1350,6 +1651,7 @@ def main() -> int:
     resample_phase(device)
     launches["film_grain"] += enhance_path(device, card)["film_grain"]
     enhancer_job(device)
+    images_and_compare(device)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

@@ -9,7 +9,8 @@ without JAX, where ``tests/conftest.py`` cannot load:
 Bounds, as in chip_smoke.py: nvcc contracts a*b+c into FMAs and its
 powf/cbrtf/logf differ from the plain ops' by an ulp or two.  The layouts
 compute the same numbers as the flat path, so they are held to the same
-bounds against it.
+bounds against it.  The colour-match coefficients follow one rule at every
+frame size (:func:`_check_coefficients`).
 """
 
 import json
@@ -41,6 +42,43 @@ def _card() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+def _check_partials(lab: torch.Tensor, partials: torch.Tensor) -> None:
+    """Each frame's partials are the float64 chunk sums (and sums of
+    squares) of the kernel's own BHWC LAB."""
+    batch = lab.shape[0]
+    pixels = lab.shape[1] * lab.shape[2]
+    rows = F.pad(lab.reshape(batch, -1, 3).double(),
+                 (0, 0, 0, partials.shape[1] * gc.PHASE1_BLOCK - pixels))
+    rows = rows.reshape(batch, partials.shape[1], gc.PHASE1_BLOCK, 3)
+    sums = torch.cat([rows.sum(2), (rows * rows).sum(2)], dim=-1)
+    assert torch.allclose(partials, sums, rtol=1e-12, atol=1e-9)
+
+
+def _check_coefficients(lab_k, lab_p, coeff_k, coeff_p, ref_stats,
+                        strength=0.7) -> None:
+    """A = s sigma_ref / sigma + (1 - s) and B = s (mu_ref - mu A') divide
+    by each frame's LAB std, so the kernel's and the plain version's LAB,
+    an ulp or two apart, move them by up to s sigma_ref |d sigma| /
+    sigma^2 (and B also by |d mu| gain + |mu| d gain).  That change,
+    measured from the two BHWC LABs in float64, twice over, plus 1e-5 is
+    the bound: about 1e-5 on frames of many pixels, where the ulps
+    average out, and wider on a frame of a few."""
+    def stats(lab):
+        x = lab.reshape(lab.shape[0], -1, 3).double()
+        return x.mean(1), x.std(1) + 1e-5
+
+    (mean_k, std_k), (mean_p, std_p) = stats(lab_k), stats(lab_p)
+    ref_std = ref_stats[1].reshape(1, 3).double()
+    gain = ref_std / torch.minimum(std_k, std_p)
+    d_gain = ref_std * (std_k - std_p).abs() / (std_k * std_p)
+    d_b = (mean_k - mean_p).abs() * gain \
+        + torch.maximum(mean_k.abs(), mean_p.abs()) * d_gain
+    bound = 1e-5 + 2 * strength * torch.cat([d_gain, d_b], dim=1)
+    err = (coeff_k.double() - coeff_p.double()).abs()
+    assert bool((err <= bound).all()), (float(err.max()),
+                                        float((err - bound).max()))
 
 
 def _config(device):
@@ -98,10 +136,11 @@ def test_phases_match_plain_versions(shape):
                                     adjust=config.adjust)
     assert part_k.shape == part_p.shape
     assert float((lab_k - lab_p).abs().max()) <= 5e-4
+    _check_partials(lab_k, part_k)
     pixels = shape[1] * shape[2]
     coeff_k, coeff_p = (gc.stats_barrier(p, pixels, ref_mean, ref_std, 0.7)
                         for p in (part_k, part_p))
-    assert float((coeff_k - coeff_p).abs().max()) <= 1e-5
+    _check_coefficients(lab_k, lab_p, coeff_k, coeff_p, ref_stats)
     for grain, bound in ((0.0, 2e-5), (0.05, 5e-5)):
         kw = dict(sharpen_strength=1.5, grain_intensity=grain,
                   saturation_mix=0.5, seed_base=42)
@@ -168,17 +207,9 @@ def test_planes_kernels_match_plain_versions(shape):
     assert torch.equal(lab_p, lab_f.permute(0, 3, 1, 2))
     coeff, coeff_k = (gc.stats_barrier(p, shape[1] * shape[2], ref_mean,
                                        ref_std, 0.7) for p in (part_p, part_k))
-    if shape[1] * shape[2] >= 64:
-        # A/B divide by a frame's std: over a frame of a few pixels, LAB's
-        # last-ulp differences (<= 5e-4 above) move them past 1e-5
-        assert float((coeff_k - coeff).abs().max()) <= 1e-5
-    # the partials are the float64 chunk sums of the kernel's own LAB
-    rows = F.pad(lab_k.permute(0, 2, 3, 1).reshape(shape[0], -1, 3).double(),
-                 (0, 0, 0, part_k.shape[1] * gc.PHASE1_BLOCK
-                  - shape[1] * shape[2]))
-    rows = rows.reshape(shape[0], part_k.shape[1], gc.PHASE1_BLOCK, 3)
-    sums = torch.cat([rows.sum(2), (rows * rows).sum(2)], dim=-1)
-    assert torch.allclose(part_k, sums, rtol=1e-12, atol=1e-9)
+    _check_partials(lab_k.permute(0, 2, 3, 1), part_k)
+    _check_coefficients(lab_k.permute(0, 2, 3, 1), lab_p.permute(0, 2, 3, 1),
+                        coeff_k, coeff, ref_stats)
     for grain, bound in ((0.0, 2e-5), (0.05, 5e-5)):
         kw = dict(sharpen_strength=1.5, grain_intensity=grain,
                   saturation_mix=0.5, seed_base=42)
@@ -397,3 +428,61 @@ def test_cli_enhance_on_card(tmp_path):
     assert final["status"] == "complete" and final["device"] == "cuda"
     meta = final["output_metadata"]
     assert (meta["frame_count"], meta["width"], meta["height"]) == (6, 2560, 1920)
+
+
+# --------------------------------------------------------------------------
+# the still-image and compare surface
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_image_lut_and_compare_videos_on_card_match_cpu(tmp_path):
+    """``apply_lut_to_image`` and ``compare_videos`` on the card against
+    ``device="cpu"``, decoded: at most one level apart on at most 0.1% of
+    values.  The clips use the selection modes: the card dequantizes by a
+    reciprocal multiply, an ulp from the CPU's division, which the blend
+    modes can carry across a level boundary and the lossy encode then
+    spreads over a block (``chip_smoke.py`` holds the blend modes to the
+    CPU in float32)."""
+    _card()
+    cv2 = pytest.importorskip("cv2")
+    from vrgdg_tpu_torch.api import compare
+
+    rng = np.random.default_rng(18)
+    image = str(tmp_path / "frame.png")
+    cv2.imwrite(image, rng.integers(0, 256, (270, 480, 3), np.uint8))
+    clips = []
+    for name, size in (("a.mp4", (96, 64)), ("b.mp4", (96, 64))):
+        clips.append(str(tmp_path / name))
+        writer = cv2.VideoWriter(clips[-1], cv2.VideoWriter_fourcc(*"mp4v"),
+                                 12.0, size)
+        for _ in range(10):
+            writer.write(rng.integers(0, 256, (size[1], size[0], 3),
+                                      np.uint8))
+        writer.release()
+
+    def decoded(path):
+        capture = cv2.VideoCapture(path)
+        frames = []
+        while True:
+            ok, frame = capture.read()
+            if not ok:
+                break
+            frames.append(frame)
+        capture.release()
+        return np.stack(frames).astype(np.int16)
+
+    outputs = {}
+    for device in ("cuda", "cpu"):
+        outputs[device] = [cv2.imread(appliers.apply_lut_to_image(
+            image, "teal_orange.cube", str(tmp_path / f"{device}.png"), 7.0,
+            device=device)["output"]).astype(np.int16)]
+        for mode in ("side_by_side", "blink"):
+            result = compare.compare_videos(
+                clips[0], clips[1], mode, str(tmp_path / f"{device}_{mode}.mp4"),
+                blink_speed=3.0, batch_size=4, device=device)
+            assert result["processed_frames"] == 10
+            outputs[device].append(decoded(result["output"]))
+    for got, want in zip(outputs["cuda"], outputs["cpu"]):
+        assert got.shape == want.shape
+        diff = np.abs(got - want)
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3

@@ -188,7 +188,7 @@ def test_mesh_for_settings_refuses_more_than_one_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tenh.mesh_for_settings(settings, "cuda") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    with pytest.raises(NotImplementedError, match='item "Parallel"'):
         tenh.mesh_for_settings(settings, "cuda")
     with pytest.raises(NotImplementedError):
         tenh.mesh_for_settings(
@@ -475,7 +475,7 @@ def test_parallel_reader_copy(source_video, as_float):
     for (_, a), (_, b) in zip(got, want):
         np.testing.assert_array_equal(a, b)
     with tvio.VideoReader(source_video, batch_size=4, start_frame=3,
-                          end_frame=57) as sequential:
+                          end_frame=57, as_float=False) as sequential:
         expected = np.concatenate([b for _, b in sequential])
     joined = np.concatenate([b for _, b in got])
     if as_float:

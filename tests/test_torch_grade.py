@@ -263,10 +263,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "vrgdg_tpu_torch.jobs, "
             "vrgdg_tpu_torch.jobs.enhancer, vrgdg_tpu_torch.jobs.manifest, "
             "vrgdg_tpu_torch.jobs.prepare_restore, "
-            "vrgdg_tpu_torch.ops.resize, vrgdg_tpu_torch.native\n"
+            "vrgdg_tpu_torch.ops.resize, vrgdg_tpu_torch.native, "
+            "vrgdg_tpu_torch.api, vrgdg_tpu_torch.api.compare, "
+            "vrgdg_tpu_torch.ops.compare, vrgdg_tpu_torch.runtime.image_io, "
+            "vrgdg_tpu_torch.runtime.media_loaders\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'vrgdg_tpu' or "
-            "m.startswith('vrgdg_tpu.')]\n"
+            "m.startswith('vrgdg_tpu.') or m.split('.')[0] == 'PIL']\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     done = subprocess.run([sys.executable, "-c", code], capture_output=True,

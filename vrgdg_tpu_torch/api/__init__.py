@@ -1,1 +1,26 @@
-"""Library API surface: the appliers and the path helpers they use."""
+"""Library API surface mirroring the reference's applier endpoints: the
+ported part of :mod:`vrgdg_tpu.api` (the appliers and previews, compare,
+the LUT catalog and adjust presets)."""
+
+from .appliers import (apply_adjust_to_image, apply_adjust_to_video,
+                       apply_film_grain_to_image, apply_film_grain_to_video,
+                       apply_lut_to_image, apply_lut_to_video, delete_preview,
+                       device_name, ffmpeg_browser_encode, grade_video,
+                       preview_adjust_on_media, preview_film_grain_on_media,
+                       preview_lut_on_media)
+from .compare import compare_images, compare_videos
+from .paths import (delete_adjust_preset, import_adjust_preset,
+                    list_adjust_presets, list_luts, resolve_media_path,
+                    safe_lut_path, save_adjust_preset)
+
+__all__ = [
+    "apply_adjust_to_image", "apply_adjust_to_video",
+    "apply_film_grain_to_image", "apply_film_grain_to_video",
+    "apply_lut_to_image", "apply_lut_to_video", "delete_preview",
+    "device_name", "ffmpeg_browser_encode", "grade_video",
+    "preview_adjust_on_media", "preview_film_grain_on_media",
+    "preview_lut_on_media", "compare_images", "compare_videos",
+    "delete_adjust_preset", "import_adjust_preset",
+    "list_adjust_presets", "list_luts", "resolve_media_path",
+    "safe_lut_path", "save_adjust_preset",
+]

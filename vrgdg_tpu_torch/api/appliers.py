@@ -1,10 +1,11 @@
-"""Library API: apply LUT / film grain / adjust / the fused grade to videos.
+"""Library API: apply LUT / film grain / adjust / the fused grade to media.
 
-Counterpart of the video appliers of :mod:`vrgdg_tpu.api.appliers`: same
-parameter names and result-dict fields (``elapsed_seconds``,
-``processed_fps``, codec fallback and ffmpeg re-encode status,
-``stage_seconds``), with the pixel math running as torch batches on an
-explicit device.
+Counterpart of :mod:`vrgdg_tpu.api.appliers`: same parameter names and
+result-dict fields (``elapsed_seconds``, ``processed_fps``, codec fallback
+and ffmpeg re-encode status, ``stage_seconds``), with the pixel math
+running as torch batches on an explicit device.  Still images (the image
+appliers, the before/after previews) are read and written through
+:mod:`vrgdg_tpu_torch.runtime.image_io`, which gives Pillow's pixels.
 
 The per-batch loop lives in :func:`stream_graded_batches`, a generator over
 uint8 ``(B, H, W, 3)`` host batches: uint8 upload, dequantize, the effect,
@@ -31,7 +32,7 @@ from ..core.params import (AdjustSettings, ColorMatchParams, GrainParams,
                            LUTParams, SharpenParams)
 from ..ops.color_match import lab_statistics
 from ..ops.grade import GradeConfig, grade_prepared, prepare_operands
-from ..runtime import profiling, video_io
+from ..runtime import image_io, profiling, video_io
 from . import paths
 
 Effect = Callable[[torch.Tensor, int], torch.Tensor]
@@ -242,12 +243,17 @@ def _apply_effect_to_video(input_path, effect: Effect, *, tag: str, device,
 
     metadata = video_io.probe_video(input_path)
     fps, width, height = metadata["fps"], metadata["width"], metadata["height"]
+    # VRGDG_DISPATCH_DEPTH overrides the pipelining depth (1 = the
+    # synchronous loop that A/B runs use)
+    dispatch_depth = int(os.environ.get("VRGDG_DISPATCH_DEPTH")
+                         or dispatch_depth)
     started = time.perf_counter()
     stats: dict = {}
     timer = profiling.StageTimer()
 
     def producer():
-        reader = video_io.VideoReader(input_path, batch_size=batch_size)
+        reader = video_io.VideoReader(input_path, batch_size=batch_size,
+                                      as_float=False)
         with reader, video_io.PrefetchingReader(reader) as prefetch:
             yield from stream_graded_batches(
                 prefetch, effect, batch_size=batch_size, device=device,
@@ -300,6 +306,67 @@ def _apply_effect_to_video(input_path, effect: Effect, *, tag: str, device,
     return result
 
 
+def _read_image(path) -> np.ndarray:
+    """An image file -> (1, H, W, 3) float32 RGB in [0,1], divided on the
+    host as the JAX package does."""
+    return image_io.read_rgb(path).astype(np.float32)[None] / 255.0
+
+
+def _run_effect(effect: Effect, array: np.ndarray, device) -> np.ndarray:
+    """``effect`` on one float32 (1, H, W, 3) host array at frame 0, on
+    ``device``; the result back on the host."""
+    out = effect(torch.from_numpy(array).to(device), 0)
+    return out.cpu().numpy()
+
+
+def _apply_effect_to_image(input_path, effect: Effect, *, tag: str, device,
+                           output_path="", replace_source=False,
+                           extra_fields: dict | None = None) -> dict:
+    """Read -> effect on ``device`` -> write, with the JAX applier's
+    result fields plus ``stage_seconds`` (decode = read and divide on the
+    host, device = upload, effect and download, encode = quantize and
+    write)."""
+    device = resolve_device(device)
+    input_path = paths.resolve_media_path(input_path, "Input image")
+    if os.path.splitext(input_path)[1].lower() not in paths.SUPPORTED_IMAGE_EXTENSIONS:
+        raise ValueError("Input image type is not supported.")
+    output_path = os.path.abspath(
+        str(output_path or "").strip().strip('"')
+        or _default_output_path(input_path, tag))
+    if replace_source:
+        output_path = input_path
+    os.makedirs(os.path.dirname(output_path), exist_ok=True)
+    tmp_output = output_path
+    if replace_source:
+        fd, tmp_output = tempfile.mkstemp(
+            prefix="vrgdg_tpu_", suffix=os.path.splitext(input_path)[1],
+            dir=os.path.dirname(input_path))
+        os.close(fd)
+
+    started = time.perf_counter()
+    timer = profiling.StageTimer()
+    with timer.stage("decode"):
+        array = _read_image(input_path)
+    with timer.stage("device"):
+        out = _run_effect(effect, array, device)
+    with timer.stage("encode"):
+        u8 = np.clip(out[0] * 255.0, 0, 255).astype(np.uint8)
+        image_io.write_rgb(tmp_output, u8)
+    if replace_source:
+        os.replace(tmp_output, output_path)
+    elapsed = time.perf_counter() - started
+    result = {
+        "input": input_path,
+        "output": output_path,
+        "device": device_name(device),
+        "replace_source": bool(replace_source),
+        "elapsed_seconds": elapsed,
+        "stage_seconds": timer.seconds(),
+    }
+    result.update(extra_fields or {})
+    return result
+
+
 # --------------------------------------------------------------------------
 # Effect builders: operands resolved on the device once per video
 # --------------------------------------------------------------------------
@@ -319,18 +386,29 @@ def grade_effect(config: GradeConfig, device, *, lut=None,
     return effect
 
 
-def _load_reference_image(reference_image) -> np.ndarray:
-    """A reference image path (read with cv2) or array -> (1, H, W, 3)
-    float32 RGB in [0,1]."""
-    if isinstance(reference_image, (str, os.PathLike)):
-        import cv2
+def _lut_effect(lut_name, strength, luts_dir, device) -> tuple[Effect, str]:
+    lut = GLOBAL_LUT_CACHE.load(paths.safe_lut_path(lut_name, luts_dir))
+    effect = grade_effect(GradeConfig(lut=LUTParams.normalize(strength)),
+                          device, lut=lut)
+    return effect, os.path.basename(str(lut_name))
 
-        path = paths.resolve_media_path(reference_image, "Reference image")
-        bgr = cv2.imread(path, cv2.IMREAD_COLOR)
-        if bgr is None:
-            raise ValueError(f"Could not read the reference image {path}.")
-        return (np.ascontiguousarray(bgr[..., ::-1], dtype=np.float32)
-                / 255.0)[None]
+
+def _grain_effect(grain_intensity, saturation_mix, seed, device) -> Effect:
+    params = GrainParams.normalize(grain_intensity, saturation_mix, seed or 0)
+    return grade_effect(GradeConfig(grain=params), device)
+
+
+def _adjust_effect(settings, device) -> Effect:
+    return grade_effect(
+        GradeConfig(adjust=AdjustSettings.normalize(settings)), device)
+
+
+def _load_reference_image(reference_image) -> np.ndarray:
+    """A reference image path (read as Pillow reads it) or array ->
+    (1, H, W, 3) float32 RGB in [0,1]."""
+    if isinstance(reference_image, (str, os.PathLike)):
+        return _read_image(paths.resolve_media_path(reference_image,
+                                                    "Reference image"))
     ref = np.asarray(reference_image, np.float32)
     return ref[None] if ref.ndim == 3 else ref
 
@@ -344,10 +422,7 @@ def apply_lut_to_video(input_path, lut_name, output_path="", strength=10.0,
                        preserve_audio=True, encode_crf=23,
                        encode_preset="medium", luts_dir=None, *,
                        device="cuda") -> dict:
-    lut = GLOBAL_LUT_CACHE.load(paths.safe_lut_path(lut_name, luts_dir))
-    lut_base = os.path.basename(str(lut_name))
-    effect = grade_effect(GradeConfig(lut=LUTParams.normalize(strength)),
-                          device, lut=lut)
+    effect, lut_base = _lut_effect(lut_name, strength, luts_dir, device)
     return _apply_effect_to_video(
         input_path, effect, tag=lut_base, device=device,
         output_path=output_path, batch_size=batch_size,
@@ -357,14 +432,23 @@ def apply_lut_to_video(input_path, lut_name, output_path="", strength=10.0,
         extra_fields={"lut": lut_base, "strength": float(strength)})
 
 
+def apply_lut_to_image(input_path, lut_name, output_path="", strength=10.0,
+                       replace_source=False, luts_dir=None, *,
+                       device="cuda") -> dict:
+    effect, lut_base = _lut_effect(lut_name, strength, luts_dir, device)
+    return _apply_effect_to_image(
+        input_path, effect, tag=lut_base, device=device,
+        output_path=output_path, replace_source=replace_source,
+        extra_fields={"lut": lut_base, "strength": float(strength)})
+
+
 def apply_film_grain_to_video(input_path, output_path="",
                               grain_intensity=0.04, saturation_mix=0.5,
                               seed=None, batch_size=8, replace_source=False,
                               thumbnail_path="", preserve_audio=True,
                               encode_crf=26, encode_preset="medium", *,
                               device="cuda") -> dict:
-    params = GrainParams.normalize(grain_intensity, saturation_mix, seed or 0)
-    effect = grade_effect(GradeConfig(grain=params), device)
+    effect = _grain_effect(grain_intensity, saturation_mix, seed, device)
     return _apply_effect_to_video(
         input_path, effect, tag="grain", device=device,
         output_path=output_path, batch_size=batch_size,
@@ -376,19 +460,42 @@ def apply_film_grain_to_video(input_path, output_path="",
                       "seed": seed})
 
 
+def apply_film_grain_to_image(input_path, output_path="",
+                              grain_intensity=0.04, saturation_mix=0.5,
+                              seed=None, replace_source=False, *,
+                              device="cuda") -> dict:
+    effect = _grain_effect(grain_intensity, saturation_mix, seed, device)
+    return _apply_effect_to_image(
+        input_path, effect, tag="grain", device=device,
+        output_path=output_path, replace_source=replace_source,
+        extra_fields={"grain_intensity": float(grain_intensity),
+                      "saturation_mix": float(saturation_mix),
+                      "seed": seed})
+
+
 def apply_adjust_to_video(input_path, output_path="", settings=None,
                           batch_size=8, replace_source=False,
                           thumbnail_path="", preserve_audio=True,
                           encode_crf=23, encode_preset="medium", *,
                           device="cuda") -> dict:
+    effect = _adjust_effect(settings, device)
     normalized = AdjustSettings.normalize(settings)
-    effect = grade_effect(GradeConfig(adjust=normalized), device)
     return _apply_effect_to_video(
         input_path, effect, tag="adjust", device=device,
         output_path=output_path, batch_size=batch_size,
         replace_source=replace_source, thumbnail_path=thumbnail_path,
         preserve_audio=preserve_audio, encode_crf=encode_crf,
         encode_preset=encode_preset,
+        extra_fields={"settings": normalized.to_dict()})
+
+
+def apply_adjust_to_image(input_path, output_path="", settings=None,
+                          replace_source=False, *, device="cuda") -> dict:
+    effect = _adjust_effect(settings, device)
+    normalized = AdjustSettings.normalize(settings)
+    return _apply_effect_to_image(
+        input_path, effect, tag="adjust", device=device,
+        output_path=output_path, replace_source=replace_source,
         extra_fields={"settings": normalized.to_dict()})
 
 
@@ -458,3 +565,66 @@ def grade_video(input_path, output_path="", *, lut_name=None,
                           ("color_match", config.color_match),
                           ("sharpen", config.sharpen),
                           ("grain", config.grain)] if on is not None]})
+
+
+# --------------------------------------------------------------------------
+# Previews (first frame of a video, or the image itself -> JPEG pair)
+# --------------------------------------------------------------------------
+
+def _preview_media(input_path, effect: Effect, device, base=None) -> dict:
+    input_path = paths.resolve_media_path(input_path, "Media")
+    ext = os.path.splitext(input_path)[1].lower()
+    if ext in paths.SUPPORTED_VIDEO_EXTENSIONS:
+        import cv2
+
+        capture = cv2.VideoCapture(input_path)
+        try:
+            ok, frame = capture.read()
+        finally:
+            capture.release()
+        if not ok:
+            raise RuntimeError("Could not decode the first video frame.")
+        array = frame[..., ::-1].astype(np.float32)[None] / 255.0
+    elif ext in paths.SUPPORTED_IMAGE_EXTENSIONS:
+        array = _read_image(input_path)
+    else:
+        raise ValueError("Unsupported media type for preview.")
+
+    out = _run_effect(effect, array, device)
+    token = f"preview_{int(time.time() * 1000)}"
+    folder = paths.preview_root(base)
+    before = os.path.join(folder, f"{token}_before.jpg")
+    after = os.path.join(folder, f"{token}_after.jpg")
+    image_io.write_rgb(before, (np.clip(array[0], 0, 1) * 255).astype(np.uint8))
+    image_io.write_rgb(after, (np.clip(out[0], 0, 1) * 255).astype(np.uint8))
+    return {"before": before, "after": after}
+
+
+def preview_lut_on_media(input_path, lut_name, strength=10.0, luts_dir=None,
+                         base=None, *, device="cuda") -> dict:
+    effect, _ = _lut_effect(lut_name, strength, luts_dir, device)
+    return _preview_media(input_path, effect, device, base)
+
+
+def preview_film_grain_on_media(input_path, grain_intensity=0.04,
+                                saturation_mix=0.5, seed=None, base=None, *,
+                                device="cuda") -> dict:
+    return _preview_media(
+        input_path,
+        _grain_effect(grain_intensity, saturation_mix, seed, device),
+        device, base)
+
+
+def preview_adjust_on_media(input_path, settings=None, base=None, *,
+                            device="cuda") -> dict:
+    return _preview_media(input_path, _adjust_effect(settings, device),
+                          device, base)
+
+
+def delete_preview(path, base=None) -> bool:
+    folder = paths.preview_root(base)
+    path = os.path.abspath(str(path or ""))
+    if os.path.commonpath([folder, path]) != folder or not os.path.isfile(path):
+        return False
+    os.remove(path)
+    return True

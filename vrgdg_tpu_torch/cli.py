@@ -1,13 +1,17 @@
 """Command-line interface of the PyTorch/CUDA port.
 
 Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
-  probe  — video metadata
-  grade  — the fused full stack (LUT + adjust + color match + sharpen +
-           grain); ``--fused-mode fused`` runs the two CUDA kernels
-  lut    — 3D .cube LUT on a video
-  grain  — seeded film grain on a video
-  adjust — 13-slider adjust stack on a video
-  enhance — the Standalone Video Enhancer job (segmented, resumable)
+  probe    — video metadata
+  grade    — the fused full stack (LUT + adjust + color match + sharpen +
+             grain); ``--fused-mode fused`` runs the two CUDA kernels
+  lut      — 3D .cube LUT on a video or image
+  grain    — seeded film grain on a video
+  adjust   — 13-slider adjust stack on a video or image
+  enhance  — the Standalone Video Enhancer job (segmented, resumable)
+  compare  — A/B comparison renders (side_by_side/slider/overlay/
+             difference/blink) of two images or two videos
+  luts     — list bundled LUTs
+  make-lut — synthesize a palette .cube file
 
 ``--device`` defaults to ``cuda``; on a machine without a card the command
 stops with an error unless ``--device cpu`` is given.
@@ -30,6 +34,17 @@ def _print(result):
         raise SystemExit(0)
 
 
+def _is_image(path: str) -> bool:
+    from .api.paths import SUPPORTED_IMAGE_EXTENSIONS
+
+    return os.path.splitext(path)[1].lower() in SUPPORTED_IMAGE_EXTENSIONS
+
+
+def _add_device(p):
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default), cuda:N or cpu")
+
+
 def _add_video_common(p):
     p.add_argument("input")
     p.add_argument("-o", "--output", default="")
@@ -37,8 +52,7 @@ def _add_video_common(p):
     p.add_argument("--no-audio", action="store_true")
     p.add_argument("--crf", type=int, default=23)
     p.add_argument("--preset", default="medium")
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default), cuda:N or cpu")
+    _add_device(p)
 
 
 def _enhance(args, device) -> None:
@@ -112,8 +126,28 @@ def main(argv=None):
     p.add_argument("--settings", default="{}", help="JSON enhancer settings")
     p.add_argument("--resume", default="", help="job id to resume")
     p.add_argument("--output-root", default=None)
-    p.add_argument("--device", default="cuda",
-                   help="torch device: cuda (default), cuda:N or cpu")
+    _add_device(p)
+
+    p = sub.add_parser("compare", help="render an A/B comparison")
+    p.add_argument("input_a")
+    p.add_argument("input_b")
+    p.add_argument("-o", "--output", default="")
+    p.add_argument("--mode", default="slider",
+                   choices=["side_by_side", "slider", "overlay",
+                            "difference", "blink"])
+    p.add_argument("--slider-position", type=float, default=0.5)
+    p.add_argument("--overlay-opacity", type=float, default=0.5)
+    p.add_argument("--difference-gain", type=float, default=1.0)
+    p.add_argument("--blink-speed", type=float, default=1.0)
+    p.add_argument("--batch-size", type=int, default=8)
+    _add_device(p)
+
+    sub.add_parser("luts", help="list bundled LUTs")
+
+    p = sub.add_parser("make-lut", help="synthesize a palette LUT")
+    p.add_argument("colors", help='comma list, e.g. "#0b1d51, #f3d27a"')
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("--size", type=int, default=33)
 
     p = sub.add_parser("probe", help="video metadata")
     p.add_argument("input")
@@ -124,6 +158,16 @@ def main(argv=None):
         from .runtime import video_io
         _print(video_io.probe_video(args.input))
         return
+    if args.command == "luts":
+        from .api import paths
+        _print(paths.list_luts())
+        return
+    if args.command == "make-lut":
+        from .core.cube import build_palette_lut, write_cube
+        lut = build_palette_lut(args.colors, args.size)
+        path = write_cube(lut, args.output)
+        _print({"output": path, "size": args.size, "colors": args.colors})
+        return
 
     from .api import appliers
     try:
@@ -133,6 +177,20 @@ def main(argv=None):
     if args.command == "enhance":
         _enhance(args, device)
         return
+    if args.command == "compare":
+        from .api import compare
+        options = dict(slider_position=args.slider_position,
+                       overlay_opacity=args.overlay_opacity,
+                       difference_gain=args.difference_gain, device=device)
+        if _is_image(args.input_a):
+            _print(compare.compare_images(args.input_a, args.input_b,
+                                          args.mode, args.output, **options))
+        else:
+            _print(compare.compare_videos(
+                args.input_a, args.input_b, args.mode, args.output,
+                blink_speed=args.blink_speed, batch_size=args.batch_size,
+                **options))
+        return
     common = dict(batch_size=args.batch_size,
                   preserve_audio=not args.no_audio, encode_crf=args.crf,
                   encode_preset=args.preset, device=device)
@@ -140,10 +198,18 @@ def main(argv=None):
         _print(appliers.apply_film_grain_to_video(
             args.input, args.output, args.intensity, args.saturation_mix,
             args.seed, **common))
+    elif args.command == "lut" and _is_image(args.input):
+        _print(appliers.apply_lut_to_image(
+            args.input, args.lut_name, args.output, args.strength,
+            luts_dir=args.luts_dir, device=device))
     elif args.command == "lut":
         _print(appliers.apply_lut_to_video(
             args.input, args.lut_name, args.output, args.strength,
             luts_dir=args.luts_dir, **common))
+    elif args.command == "adjust" and _is_image(args.input):
+        _print(appliers.apply_adjust_to_image(
+            args.input, args.output, json.loads(args.settings),
+            device=device))
     elif args.command == "adjust":
         _print(appliers.apply_adjust_to_video(
             args.input, args.output, json.loads(args.settings), **common))

@@ -120,8 +120,8 @@ def mesh_for_settings(settings: EnhancerSettings, device="cuda"):
     raise NotImplementedError(
         f"data_parallel={want}, spatial_parallel={spatial} asks for {n_use} "
         f"of the {n_visible} visible cards; the multi-card enhancer is not "
-        "ported yet (ROADMAP.md queue 1, item 3). Set data_parallel to 1 "
-        "to render on one card.")
+        "ported yet (ROADMAP.md queue 1, item \"Parallel\"). Set "
+        "data_parallel to 1 to render on one card.")
 
 
 class PendingBatch:
@@ -454,7 +454,7 @@ def _render_segment(source_path: str, segment_path: str, start_frame: int,
         else:
             reader = video_io.VideoReader(source_path, batch_size=batch,
                                           start_frame=start_frame,
-                                          end_frame=end_frame)
+                                          end_frame=end_frame, as_float=False)
         # PrefetchingReader.close() stops and joins the pump thread before
         # releasing the capture, so it owns reader shutdown on every path.
         with video_io.PrefetchingReader(reader) as prefetch:

@@ -15,20 +15,22 @@ pluggable callback:
   exact source resolution, source-tail preservation, and an
   ``enhancement_strength`` blend with the untouched originals (``:394-419``).
 
-The original's PNG and working-video helpers (``save_image_batch``,
-``iter_anchor_images``, ``load_anchor_batches``,
-``store_enhanced_anchors``, ``persist_prepare``) are not here yet.
+The anchor PNG helpers read and write as the original's Pillow calls do,
+through :mod:`vrgdg_tpu_torch.runtime.image_io`.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..core.params import round_dimension
 from ..ops.resize import resize_batch, restore_batch
+from ..runtime import image_io
 
 FRAME_COUNT_TOLERANCE = 7
 
@@ -147,6 +149,147 @@ def restore(enhanced_frames: torch.Tensor, context: EnhanceContext,
     output = originals.clone()
     output[:usable, ..., :3] = blended
     return torch.clamp(output, 0.0, 1.0)
+
+
+IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".webp", ".bmp"}
+
+
+def _host(images) -> np.ndarray:
+    """A BHWC batch (torch tensor on any device, or array) as numpy."""
+    if isinstance(images, torch.Tensor):
+        return images.detach().cpu().numpy()
+    return np.asarray(images)
+
+
+def save_image_batch(images, folder: str, prefix: str) -> list[str]:
+    """Persist a BHWC [0,1] batch as deterministic-order PNGs, clearing any
+    previous media files first (``VRGDG_VideoEnhanceNodes.py:109-118``).
+
+    Names are ``{prefix}_{index:06d}.png`` so lexical order == batch order.
+    Values are rounded to the nearest level (the appliers truncate).
+    """
+    os.makedirs(folder, exist_ok=True)
+    for name in os.listdir(folder):
+        if os.path.splitext(name)[1].lower() in IMAGE_EXTENSIONS:
+            os.remove(os.path.join(folder, name))
+    paths = []
+    array = np.clip(_host(images)[..., :3], 0.0, 1.0)
+    for index in range(array.shape[0]):
+        u8 = np.round(array[index] * 255.0).astype("uint8")
+        path = os.path.join(folder, f"{prefix}_{index:06d}.png")
+        image_io.write_rgb(path, u8)
+        paths.append(path)
+    return paths
+
+
+def iter_anchor_images(directory: str):
+    """Incremental anchor loading (``VRGDG_VideoEnhanceNodes.py:143-167``):
+    returns ``(width, height, count, frames)`` where ``frames`` is a lazy
+    generator of HWC float32 [0,1] arrays in deterministic (sorted) order,
+    each EXIF-transposed and resized with Pillow's LANCZOS to the first
+    image's size (taken after its transpose).
+    """
+    files = sorted(
+        os.path.join(directory, name) for name in os.listdir(directory)
+        if os.path.splitext(name)[1].lower() in IMAGE_EXTENSIONS)
+    if not files:
+        raise FileNotFoundError(
+            f"No Video Enhance anchor images were found in {directory}")
+    height, width = image_io.read_rgb_exif_transposed(files[0]).shape[:2]
+
+    def frames():
+        for path in files:
+            image = image_io.pil_lanczos_resize(
+                image_io.read_rgb_exif_transposed(path), width, height)
+            yield image.astype(np.float32) / 255.0
+
+    return width, height, len(files), frames()
+
+
+def load_anchor_batches(directory: str, batch_size: int):
+    """Meta-batch-style chunked loading: yields BHWC float32 arrays of up
+    to ``batch_size`` anchors in deterministic order, decoding lazily (the
+    VHS BatchManager pattern, ``VRGDG_VideoEnhanceNodes.py:272-292``)."""
+    import itertools
+
+    _, _, _, frames = iter_anchor_images(directory)
+    batch_size = max(1, int(batch_size))
+    while True:
+        chunk = list(itertools.islice(frames, batch_size))
+        if not chunk:
+            return
+        yield np.stack(chunk, axis=0)
+
+
+def store_enhanced_anchors(enhanced_anchors, context, job_folder: str,
+                           folder_name: str = "enhanced_anchors") -> str:
+    """Validate and persist enhanced anchors in deterministic order
+    (``VRGDG_VideoEnhanceNodes.py:310-319``): the count must match the
+    prepared anchor indices exactly.  Returns the folder and records it in
+    ``context.extras["enhanced_anchor_folder"]``.
+
+    ``context`` is any object with ``anchor_indices`` and ``extras``.
+    """
+    expected = len(context.anchor_indices)
+    got = int(enhanced_anchors.shape[0])
+    if got != expected:
+        raise ValueError(
+            f"The enhancer returned {got} anchors; expected {expected}.")
+    folder = os.path.join(job_folder, folder_name)
+    save_image_batch(enhanced_anchors, folder, "anchor")
+    context.extras["enhanced_anchor_folder"] = folder
+    return folder
+
+
+def persist_prepare(working_frames, anchors, context: EnhanceContext,
+                    job_folder: str) -> dict:
+    """Write the prepare artifacts to disk the way the reference's node
+    does (``VRGDG_VideoEnhanceNodes.py:215-230``): anchor-source PNGs,
+    working-frame PNGs, and a near-lossless working MP4 (ffmpeg libx264
+    CRF10 when available, else the cv2 codec chain).  Paths are recorded
+    in ``context.extras`` and returned."""
+    import subprocess
+
+    from ..runtime import video_io
+
+    os.makedirs(job_folder, exist_ok=True)
+    anchor_folder = os.path.join(job_folder, "anchor_sources")
+    frames_folder = os.path.join(job_folder, "ltx_working_frames")
+    save_image_batch(anchors, anchor_folder, "anchor")
+    save_image_batch(working_frames, frames_folder, "frame")
+    video_path = os.path.join(job_folder, "ltx_working_video.mp4")
+    ffmpeg = video_io.find_ffmpeg()
+    if ffmpeg is not None:
+        command = [
+            ffmpeg, "-y", "-framerate", f"{context.fps:.12g}",
+            "-i", os.path.join(frames_folder, "frame_%06d.png"),
+            "-frames:v", str(int(context.frame_count)), "-an",
+            "-c:v", "libx264", "-preset", "slow", "-crf", "10",
+            "-pix_fmt", "yuv420p", "-movflags", "+faststart", video_path,
+        ]
+        result = subprocess.run(command, capture_output=True, text=True,
+                                errors="replace", check=False)
+        if result.returncode != 0 or not os.path.isfile(video_path):
+            raise RuntimeError(
+                "Could not create the Video Enhance working MP4: "
+                + (result.stderr or result.stdout or "unknown")[-1600:])
+    else:
+        array = _host(working_frames)
+
+        def produce():
+            for index in range(array.shape[0]):
+                yield array[index:index + 1]
+
+        video_io.write_video_with_fallback(
+            video_path, context.fps, context.working_width,
+            context.working_height, produce)
+    context.extras.update(
+        job_folder=job_folder, anchor_sources_folder=anchor_folder,
+        ltx_frames_folder=frames_folder, ltx_video_path=video_path)
+    return {"job_folder": job_folder,
+            "anchor_sources_folder": anchor_folder,
+            "ltx_frames_folder": frames_folder,
+            "ltx_video_path": video_path}
 
 
 def run_guided_enhance(video_frames: torch.Tensor,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 VIDEO_EXTENSIONS = {".mp4", ".mov", ".mkv", ".webm", ".avi", ".m4v"}
+IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".webp", ".bmp"}
 
 # Preference order from the reference (VRGDG_LUTVideoTools.py:26-31).
 CODEC_CANDIDATES = ("avc1", "H264", "X264", "mp4v")
@@ -138,17 +139,20 @@ def dequantize_on_device(frames: torch.Tensor) -> torch.Tensor:
 class VideoReader:
     """Batched frame reader over a video file.
 
-    Yields ``(first_frame_index, batch)`` with BHWC uint8 RGB batches of
-    ``batch_size`` frames (the final batch may be short); the appliers
-    convert to float on the device.
+    Yields ``(first_frame_index, batch)`` with BHWC RGB batches of
+    ``batch_size`` frames (the final batch may be short): float32 [0,1]
+    by default, uint8 with ``as_float=False``, which the appliers and the
+    enhancer ask for and convert to float on the device.
     """
 
     def __init__(self, path, batch_size: int = 8,
-                 start_frame: int = 0, end_frame: int | None = None):
+                 start_frame: int = 0, end_frame: int | None = None,
+                 as_float: bool = True):
         import cv2
 
         self.path = normalize_video_path(path)
         self.batch_size = max(1, int(batch_size))
+        self.as_float = bool(as_float)
         self._capture = cv2.VideoCapture(self.path)
         if not self._capture.isOpened():
             raise RuntimeError(f"Could not open video: {self.path}")
@@ -175,7 +179,8 @@ class VideoReader:
                 return
             start = self._position
             self._position += len(frames)
-            yield start, frames_to_rgb_u8(frames)
+            yield start, (frames_to_array(frames) if self.as_float
+                          else frames_to_rgb_u8(frames))
 
     def close(self):
         self._capture.release()
