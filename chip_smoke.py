@@ -68,9 +68,26 @@ Phases, one line each (any failure raises and the exit code is not 0):
     ``compare_videos`` side_by_side and blink on two 48-frame 1080p clips
     (frame count, size, blink period), with processed fps and the
     decode / device / encode split.  No TPU kernel lies on this path: its
+    run must launch none of the six;
+15. face repair and the secondary ops (cv2 with ``FaceDetectorYN`` is
+    required): on a seeded 72-frame 1080p clip at 24 fps of the cartoon
+    face of tests/test_face_detector.py (at 0.6x its 480p size) panning
+    over noise, the Face Fix job with the real YuNet detector (prepare,
+    enhanced anchors and 8n+1-trimmed LTX frames from a seeded affine
+    tweak of the crops, finalize on the card and on the CPU: composited
+    PNGs one level apart on <= 0.1% of values), with its prepare /
+    composite / encode seconds, the composite's ms a frame by CUDA events
+    and the host cost of a miss of the weight-matrix cache; ``run_face_fix_pipeline`` on the 72-frame batch
+    (wall time and breakdown; crops <= 2e-5 and composite <= 1e-4 against
+    the CPU); the ``face-repair`` command's four actions with a manual box
+    and with YuNet (composite card vs CPU, rebuilt frame count exact); a
+    512 crop pasted into a 4K frame (<= 2e-5); ``first_last_blend``,
+    ``batch_reference_images``, ``build_msr_reference`` and
+    ``switch_dynamic`` at 1080p and ``merge_lora`` at rank 16 into a 4096
+    x 4096 weight against the CPU.  No TPU kernel lies on these paths: the
     run must launch none of the six.
 
-Each path (5, 7, 8's layout run, 9's probe run, 12, 14) is driven with the
+Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15) is driven with the
 launch counts set to 0 just before it and read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -125,6 +142,18 @@ COMPARE_BATCH = (8, 2160, 3840)
 LETTERBOX_B = (1080, 1920)
 STILL_SIZES = ((2160, 3840), (1080, 1920))
 COMPARE_CLIP = (48, 24.0, (1920, 1080))
+# phase 15: the cartoon face of tests/test_face_detector.py in a 1080p
+# frame, panning over a seeded noise background, 72 frames at 24 fps; a
+# 512 crop pasted into a 4K frame; the secondary ops at 1080p and a
+# rank-16 LoRA fold into a 4096 x 4096 weight.  The face is drawn at 0.6x
+# the test's 480p size (a 132 x 180 ellipse): YuNet finds none at 1.5x or
+# more, and the job targets small faces
+FACE_CLIP = (72, 24.0, (1920, 1080))
+FACE_SCALE = 0.6
+FACE_REPAIR_RANGES = ("0-11,40-51", 24)               # ranges, frames
+PASTE_4K = ((2160, 3840), 512, (1600, 800, 2300, 1500))
+SECONDARY = (1080, 1920)                              # H, W
+LORA = (4096, 4096, 16)
 # kernel vs plain on the card: nvcc contracts a*b+c into FMAs and its
 # powf/cbrtf/logf differ from the plain ops' by an ulp or two.  Measured
 # on an H100 (700 W): LAB 1.2e-4, A/B 9.5e-7, RGB 1.07e-5 with grain off
@@ -135,7 +164,9 @@ COMPARE_CLIP = (48, 24.0, (1920, 1080))
 BOUNDS = {"lab": 5e-4, "coeff": 1e-5, "rgb_grain_off": 2e-5,
           "rgb_grain_on": 5e-5, "probe": 1e-4, "resample_cpu": 1e-5,
           "resample_cv2": 1e-3, "compare_blend": 1e-6,
-          "compare_letterbox": 1e-5}
+          "compare_letterbox": 1e-5, "face_crops": 2e-5,
+          "face_composite": 1e-4, "paste_back_4k": 2e-5, "bilinear": 2e-5,
+          "lanczos4": 1e-5, "lora_relative": 1e-5}
 # NVIDIA's H100 SXM data sheet (at the 700 W limit): HBM bandwidth, and
 # the float32 and float64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1319,6 +1350,14 @@ def _levels_apart(label: str, got: np.ndarray, want: np.ndarray) -> dict:
             "differing_share": f"{share:.2e}<=1e-3"}
 
 
+def _share_apart(label: str, got: np.ndarray, want: np.ndarray) -> float:
+    """:func:`_levels_apart`'s check; returns the share of values that
+    differ."""
+    _levels_apart(label, got, want)
+    diff = got.astype(np.int16) != want.astype(np.int16)
+    return float(diff.mean())
+
+
 def _render_compare_checks(device, reps=5) -> None:
     """Phase 14a: every compare mode at 4K x 8 on the card against the
     CPU, and its CUDA-event ms; then B at 1080p letterboxed onto A."""
@@ -1591,6 +1630,482 @@ def images_and_compare(device) -> None:
     torch.cuda.empty_cache()
 
 
+def _draw_face(canvas, center, scale: float):
+    """The cartoon face of tests/test_face_detector.py (BGR), its
+    480p sizes times ``scale``."""
+    import cv2
+
+    def s(value):
+        return max(1, int(round(value * scale)))
+
+    cx, cy = center
+    ax, ay = s(110), s(150)
+    cv2.ellipse(canvas, (cx, cy), (ax, ay), 0, 0, 360, (140, 170, 205), -1)
+    eye_y = cy - int(0.27 * ay)
+    dx = int(0.41 * ax)
+    for ex in (cx - dx, cx + dx):
+        cv2.ellipse(canvas, (ex, eye_y), (int(0.2 * ax), int(0.09 * ay)),
+                    0, 0, 360, (255, 255, 255), -1)
+        cv2.circle(canvas, (ex, eye_y), max(2, int(0.07 * ax)),
+                   (40, 30, 30), -1)
+    cv2.ellipse(canvas, (cx, cy + int(0.1 * ay)),
+                (max(2, int(0.11 * ax)), int(0.2 * ay)), 0, 0, 360,
+                (120, 150, 185), -1)
+    cv2.ellipse(canvas, (cx, cy + int(0.47 * ay)),
+                (int(0.41 * ax), int(0.12 * ay)), 0, 0, 180,
+                (60, 60, 160), s(6))
+    return canvas
+
+
+def _face_clip(path: str, frames: int, fps: float, width: int, height: int,
+               seed: int) -> str:
+    """The cartoon face panning left to right over seeded noise."""
+    import cv2
+
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps,
+                             (width, height))
+    rng = np.random.default_rng(seed)
+    for index in range(frames):
+        frame = rng.integers(40, 90, (height, width, 3), np.uint8)
+        cx = int(width * 0.35 + index * width * 0.3 / frames)
+        writer.write(_draw_face(frame, (cx, height // 2), FACE_SCALE))
+    writer.release()
+    return path
+
+
+def _tweak(u8: np.ndarray, rng) -> np.ndarray:
+    """A seeded affine tweak: the stand-in for an external enhancer."""
+    gain, offset = rng.uniform(0.85, 0.95), rng.uniform(8.0, 24.0)
+    return np.clip(u8.astype(np.float32) * gain + offset, 0,
+                   255).astype(np.uint8)
+
+
+def _face_fix_job(device, folder: str, clip: str, detector) -> None:
+    """Phase 15a: the Face Fix job on the 1080p clip with the real YuNet
+    detector: prepare, enhanced anchors and 8n+1-trimmed LTX frames from
+    the crops, finalize on the card and on the CPU (composited PNGs one
+    level apart on <= 0.1% of values), the composite's ms a frame (CUDA
+    events around all frames back to back) and the host cost of its
+    lanczos4 weight matrices."""
+    import cv2
+
+    from vrgdg_tpu_torch.jobs import face_fix as ff
+    from vrgdg_tpu_torch.ops import resize
+    from vrgdg_tpu_torch.ops.paste_back import ellipse_composite
+    from vrgdg_tpu_torch.runtime.profiling import StageTimer
+
+    started = time.perf_counter()
+    prepared = ff.prepare_face_fix({
+        "video_path": clip, "project_folder": folder, "whole_scene": True,
+        "confidence": 0.3, "repair_distance": "all",
+        "rotation_assist": "off", "anchor_interval": 16}, detector=detector)
+    prepare_s = time.perf_counter() - started
+    manifest_path = prepared["manifest_path"]
+    rng = np.random.default_rng(81)
+    tweaked = os.path.join(folder, "enhanced")
+    os.makedirs(tweaked, exist_ok=True)
+    tail = 0
+    for run in prepared["runs"]:
+        for anchor in run["anchors"]:
+            path = os.path.join(tweaked, os.path.basename(
+                anchor["enhanced_path"]) + f"_{run['run_index']}.png")
+            cv2.imwrite(path, _tweak(cv2.imread(anchor["source_path"]), rng))
+            ff.accept_enhanced_anchor({
+                "manifest_path": manifest_path,
+                "run_index": run["run_index"], "order": anchor["order"],
+                "image": path})
+        ff.build_ltx_inputs({"manifest_path": manifest_path,
+                             "run_index": run["run_index"]})
+        crops = [c["crop_path"] for c in prepared["crops"]
+                 if run["start_entry_index"] <= c["index"]
+                 <= run["end_entry_index"]]
+        kept = 8 * ((len(crops) - 1) // 8) + 1   # LTX's 8n+1 lengths
+        images = []
+        for index, crop in enumerate(crops[:kept]):
+            path = os.path.join(tweaked, f"ltx_{run['run_index']}_{index}.png")
+            cv2.imwrite(path, _tweak(cv2.imread(crop), rng))
+            images.append(path)
+        accepted = ff.accept_ltx_frames({
+            "manifest_path": manifest_path, "run_index": run["run_index"],
+            "images": images})
+        tail += accepted["preserved_tail_frames"]
+
+    payload = {"manifest_path": manifest_path, "feather": 18,
+               "color_match": 0.65}
+    before = resize._device_matrix.cache_info()
+    timer = StageTimer()
+    started = time.perf_counter()
+    final = ff.finalize_face_fix(payload, device=device, timer=timer)
+    finalize_s = time.perf_counter() - started
+    after = resize._device_matrix.cache_info()
+    with open(manifest_path, encoding="utf-8") as handle:
+        entries = [e for e in json.load(handle)["entries"]
+                   if e.get("composited_path")]
+    card = {e["frame_number"]: cv2.imread(e["composited_path"])
+            for e in entries}
+    cpu_final = ff.finalize_face_fix(payload, device="cpu")
+    worst = max(_share_apart(f"face-fix frame {e['frame_number']} card vs "
+                             "CPU", card[e["frame_number"]],
+                             cv2.imread(e["composited_path"]))
+                for e in entries)
+    frames, fps, (width, height) = FACE_CLIP
+    out = _decode(final["output_video_path"])
+    if out.shape != (frames, height, width, 3) or final["frames_repaired"] \
+            != len(entries) or cpu_final["frames_repaired"] != len(entries):
+        raise AssertionError(f"face-fix output: {out.shape}, {final}")
+
+    # the composite alone: frames on the card, CUDA events around the loop
+    pairs = []
+    for entry in entries:
+        pairs.append((ff.unit_float(cv2.imread(entry["original_path"])
+                                    [..., ::-1], device),
+                      ff.unit_float(cv2.imread(entry["ltx_frame_path"])
+                                    [..., ::-1], device),
+                      entry["crop_box"],
+                      float(entry["composite_strength"])))
+
+    def composite_all():
+        for original, enhanced, box, strength in pairs:
+            ellipse_composite(original, enhanced, box, 18, 0.65, strength)
+
+    composite_ms = _cuda_ms(composite_all, 1) / len(pairs)
+    # host cost of a miss of the weight-matrix cache: both lanczos4
+    # matrices of a box built in numpy and uploaded
+    build_ms = []
+    for entry in entries:
+        left, top, right, bottom = entry["crop_box"]
+        begin = time.perf_counter()
+        for dst in (bottom - top, right - left):
+            torch.from_numpy(resize.resample_matrix.__wrapped__(
+                ff.ENHANCE_SIZE, dst, "lanczos4")).to(device)
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - begin) * 1e3)
+    sizes = sorted({(e["crop_box"][3] - e["crop_box"][1],
+                     e["crop_box"][2] - e["crop_box"][0]) for e in entries})
+    del pairs
+    stages = timer.seconds()
+    _say("face-fix-job", frames=frames, size=f"{height}x{width}",
+         detector="yunet", runs=prepared["face_run_count"],
+         frames_repaired=final["frames_repaired"], ltx_tail_preserved=tail,
+         prepare_s=f"{prepare_s:.3f}", finalize_s=f"{finalize_s:.3f}",
+         composite_s=f"{stages['composite']:.3f}",
+         encode_s=f"{stages['encode']:.3f}",
+         composite_ms_per_frame=f"{composite_ms:.4f}",
+         box_sizes=len(sizes), box_min=_label(sizes[0]),
+         box_max=_label(sizes[-1]),
+         matrix_cache_misses=after.misses - before.misses,
+         matrix_cache_hits=after.hits - before.hits,
+         matrix_build_ms_per_miss=f"{float(np.mean(build_ms)):.3f}",
+         card_vs_cpu_max_share=f"{worst:.2e}<=1e-3",
+         output=f"{out.shape[0]}x{out.shape[1]}x{out.shape[2]}")
+
+
+def _memoized(detector):
+    """``detector`` with its answers kept by frame and region, so that a
+    second pass over the same frames repeats no detection."""
+    import hashlib
+
+    seen = {}
+
+    def detect(frame, region):
+        key = (hashlib.blake2b(np.ascontiguousarray(frame).tobytes(),
+                               digest_size=16).digest(), tuple(region))
+        if key not in seen:
+            seen[key] = detector(frame, region)
+        return seen[key]
+
+    return detect
+
+
+def _face_pipeline(device, clip: str, detector) -> None:
+    """Phase 15b: ``run_face_fix_pipeline`` on the 72-frame 1080p batch on
+    the card with an affine model, timed and broken down by the profiler;
+    then prepare and composite on the card against the CPU (crops <= 2e-5,
+    composite <= 1e-4)."""
+    from vrgdg_tpu_torch.jobs import face_fix as ff
+    from vrgdg_tpu_torch.jobs import face_fix_pipeline as ffp
+
+    rgb = np.ascontiguousarray(_decode(clip)[..., ::-1])
+    frames = ff.unit_float(rgb, device)
+    gain, offset = np.random.default_rng(82).uniform((0.85, 0.02),
+                                                     (0.95, 0.08))
+
+    def model(crops, anchors, safe):
+        return torch.clamp(crops * float(gain) + float(offset), 0.0, 1.0)
+
+    kw = dict(detection_confidence=0.3, repair_distance="all",
+              rotation_assist="off")
+    detector = _memoized(detector)
+    runs = []
+    breakdown(lambda: runs.append(ffp.run_face_fix_pipeline(
+        frames, model, detector=detector, **kw)), int(frames.shape[0]))
+    out, masks, repaired = runs.pop()
+    if tuple(out.shape) != tuple(frames.shape) or out.device != frames.device:
+        raise AssertionError(f"pipeline output {tuple(out.shape)} on "
+                             f"{out.device}")
+    del out, masks
+
+    # the checks below detect nothing anew: the memoized detector answers
+    crops, anchors, context = ffp.prepare_face_pipeline(frames, detector,
+                                                        **kw)
+    cpu_frames = ff.unit_float(rgb, "cpu")
+    cpu_crops, cpu_anchors, cpu_context = ffp.prepare_face_pipeline(
+        cpu_frames, detector, **kw)
+    if context.entries != cpu_context.entries or \
+            context.anchor_indices != cpu_context.anchor_indices:
+        raise AssertionError("pipeline tracking differs on the card")
+    crop_err = max(_max_err(crops.cpu(), cpu_crops),
+                   _max_err(anchors.cpu(), cpu_anchors))
+    _check("pipeline crops card vs CPU", crop_err, BOUNDS["face_crops"])
+    got = ffp.composite_repaired(model(crops, anchors, None), context)
+    want = ffp.composite_repaired(model(cpu_crops, cpu_anchors, None),
+                                  cpu_context)
+    composite_err = max(_max_err(got[0].cpu(), want[0]),
+                        _max_err(got[1].cpu(), want[1]))
+    _check("pipeline composite card vs CPU", composite_err,
+           BOUNDS["face_composite"])
+    if got[2] != want[2] or got[2] != repaired:
+        raise AssertionError(f"repaired {got[2]} / {want[2]} / {repaired}")
+    _say("face-pipeline", frames=int(frames.shape[0]),
+         size=_label(tuple(frames.shape[1:3])), repaired=repaired,
+         anchors=len(context.anchor_indices),
+         crop_err=f"{crop_err:.3g}<={BOUNDS['face_crops']:g}",
+         composite_err=f"{composite_err:.3g}<={BOUNDS['face_composite']:g}")
+    del frames, crops, anchors, context, got, want, cpu_frames, cpu_crops
+    torch.cuda.empty_cache()
+
+
+def _cli_json(argv: list[str]) -> dict:
+    """One ``vrgdg_tpu_torch.cli`` command's JSON output."""
+    import contextlib
+    import io
+
+    from vrgdg_tpu_torch import cli
+
+    buffer = io.StringIO()
+    with contextlib.redirect_stdout(buffer):
+        cli.main(argv)
+    return json.loads(buffer.getvalue())
+
+
+def _face_repair(device, folder: str, clip: str) -> None:
+    """Phase 15c: the ``face-repair`` command's four actions on the 1080p
+    clip, with a manual box and with YuNet; composite on the card against
+    the CPU (one level on <= 0.1% of values); the rebuilt video's frame
+    count exact."""
+    import cv2
+
+    frames, _, (width, height) = FACE_CLIP
+    ranges, marked = FACE_REPAIR_RANGES
+    for detector in ("manual", "yunet"):
+        root = os.path.join(folder, f"repair_{detector}")
+        flags = (["--manual-box", "600,430,180,220"] if detector == "manual"
+                 else ["--detector", "auto", "--min-confidence", "0.3"])
+        started = time.perf_counter()
+        prepared = _cli_json(["face-repair", "prepare", "--video", clip,
+                              "--ranges", ranges, "--out", root,
+                              "--padding", "1.4", *flags,
+                              "--device", str(device)])
+        prepare_s = time.perf_counter() - started
+        # every marked frame has its manual box; YuNet may miss a few
+        crops = prepared["crops"]
+        if crops != marked and (detector == "manual" or crops < marked - 4):
+            raise AssertionError(f"face-repair prepare: {prepared}")
+        with open(prepared["manifest_path"], encoding="utf-8") as handle:
+            entries = json.load(handle)["entries"]
+        fixed = os.path.join(root, "fixed")
+        os.makedirs(fixed)
+        rng = np.random.default_rng(83)
+        for entry in entries:
+            cv2.imwrite(os.path.join(fixed, entry["repaired_name"]),
+                        _tweak(cv2.resize(cv2.imread(entry["crop"]),
+                                          (512, 512)), rng))
+        outputs = {}
+        for dev in (str(device), "cpu"):
+            started = time.perf_counter()
+            result = _cli_json(["face-repair", "composite", "--manifest",
+                                prepared["manifest_path"], "--repaired-dir",
+                                fixed, "--out", os.path.join(root, dev),
+                                "--color-match", "--device", dev])
+            outputs[dev] = (result, time.perf_counter() - started)
+        worst = 0.0
+        for entry in entries:
+            name = f"frame_{entry['frame']:06d}.png"
+            worst = max(worst, _share_apart(
+                f"face-repair {detector} {name} card vs CPU",
+                cv2.imread(os.path.join(outputs[str(device)][0]["out_dir"],
+                                        name)),
+                cv2.imread(os.path.join(outputs["cpu"][0]["out_dir"], name))))
+        sheet = _cli_json(["face-repair", "contact-sheet", "--manifest",
+                           prepared["manifest_path"], "--repaired-dir",
+                           outputs[str(device)][0]["out_dir"],
+                           "--device", str(device)])
+        video = _cli_json(["face-repair", "rebuild-video", "--manifest",
+                           prepared["manifest_path"], "--fixed-dir",
+                           outputs[str(device)][0]["out_dir"], "--out",
+                           os.path.join(root, "preview.mp4"),
+                           "--device", str(device)])
+        decoded = _decode(video["output"])
+        if (video["written"], video["replaced"]) != (frames, crops) or \
+                decoded.shape != (frames, height, width, 3) or \
+                sheet["pairs"] != crops:
+            raise AssertionError(f"face-repair: {sheet} {video} "
+                                 f"{decoded.shape}")
+        _say("face-repair", detector=detector, ranges=ranges,
+             crops=prepared["crops"], prepare_s=f"{prepare_s:.3f}",
+             composite_card_s=f"{outputs[str(device)][1]:.3f}",
+             composite_cpu_s=f"{outputs['cpu'][1]:.3f}",
+             card_vs_cpu_max_share=f"{worst:.2e}<=1e-3",
+             sheet_pairs=sheet["pairs"], rebuilt_frames=decoded.shape[0],
+             replaced=video["replaced"])
+
+
+def _paste_back_4k(device, reps=5) -> None:
+    """Phase 15d: a 512 crop pasted into a 3840x2160 frame (bicubic,
+    ellipse feather, colour match) on the card against the CPU."""
+    from vrgdg_tpu_torch.ops.paste_back import paste_back
+
+    (height, width), side, box = PASTE_4K
+    rng = np.random.default_rng(84)
+    frame = torch.from_numpy(rng.random((1, height, width, 3), np.float32))
+    crop = torch.from_numpy(rng.random((1, side, side, 3), np.float32))
+    data = ((width, height), box)
+    want = paste_back(frame, crop, data)
+    got = paste_back(frame.to(device), crop.to(device), data)
+    err = max(_max_err(got[0].cpu(), want[0]), _max_err(got[1].cpu(),
+                                                        want[1]))
+    _check("paste_back 4K card vs CPU", err, BOUNDS["paste_back_4k"])
+    on_card = frame.to(device), crop.to(device)
+    ms = _cuda_ms(lambda: paste_back(*on_card, data), reps)
+    _say("paste-back-4k", frame=f"{height}x{width}", crop=f"{side}x{side}",
+         box=_label(box), err=f"{err:.3g}<={BOUNDS['paste_back_4k']:g}",
+         ms=f"{ms:.4f}")
+
+
+def _secondary_ops(device, reps=5) -> None:
+    """Phase 15e: ``first_last_blend``, ``batch_reference_images``,
+    ``build_msr_reference`` and ``switch_dynamic`` at 1080p and
+    ``merge_lora`` at rank 16 into a 4096 x 4096 weight, on the card
+    against the CPU, with CUDA-event ms."""
+    from vrgdg_tpu_torch.ops import (grid, image_switch, lora,
+                                     reference_images, schedules)
+
+    rng = np.random.default_rng(85)
+
+    def image(*shape):
+        return torch.from_numpy(rng.random(shape, np.float32))
+
+    height, width = SECONDARY
+    small = (height * 2 // 3, width * 2 // 3)
+    first, last = image(height, width, 3), image(*small, 3)
+    args = (33, 0.05, 0.9, "smoothstep")
+    err = _max_err(schedules.first_last_blend(first.to(device),
+                                              last.to(device), *args).cpu(),
+                   schedules.first_last_blend(first, last, *args))
+    _check("first_last_blend card vs CPU", err, BOUNDS["bilinear"])
+    on_card = first.to(device), last.to(device)
+    ms = _cuda_ms(lambda: schedules.first_last_blend(*on_card, *args), reps)
+    _say("first-last-blend", frames=33, size=_label(SECONDARY),
+         last=_label(small), err=f"{err:.3g}<={BOUNDS['bilinear']:g}",
+         ms=f"{ms:.4f}")
+
+    refs = [image(1, height, width, 3), image(2, *small, 4),
+            image(1, height, height * 4 // 3, 3)]
+    err = _max_err(reference_images.batch_reference_images(
+        [r.to(device) for r in refs]).cpu(),
+        reference_images.batch_reference_images(refs))
+    _check("batch_reference_images card vs CPU", err, BOUNDS["bilinear"])
+    on_card = [r.to(device) for r in refs]
+    ms = _cuda_ms(lambda: reference_images.batch_reference_images(on_card),
+                  reps)
+    _say("batch-reference-images", images=len(refs),
+         out=_label((4, height, width, 4)),
+         err=f"{err:.3g}<={BOUNDS['bilinear']:g}", ms=f"{ms:.4f}")
+
+    subjects = [image(height, width, 3).numpy(),
+                image(width * 2 // 3, height * 2 // 3, 3).numpy()]
+    started = time.perf_counter()
+    got = grid.build_msr_reference(subjects, None, width, height,
+                                   device=device)
+    msr_s = time.perf_counter() - started
+    want = grid.build_msr_reference(subjects, None, width, height,
+                                    device="cpu")
+    err = float(np.max(np.abs(got - want)))
+    _check("build_msr_reference card vs CPU", err, BOUNDS["lanczos4"])
+    _say("msr-reference", frames=got.shape[0], size=_label(SECONDARY),
+         err=f"{err:.3g}<={BOUNDS['lanczos4']:g}",
+         wall_ms=f"{msr_s * 1e3:.3f}")
+
+    slots = {1: image(2, height, width, 3), 3: image(3, height, width, 3)}
+    for spec, blank in (("3,1", False), ("all", False), ("0", True)):
+        got = image_switch.switch_dynamic(
+            spec, 4, {k: v.to(device) for k, v in slots.items()}, blank,
+            device=device)
+        want = image_switch.switch_dynamic(spec, 4, slots, blank,
+                                           device="cpu")
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"switch_dynamic {spec!r} differs")
+    _say("switch-dynamic", specs="3,1|all|0(blank)", agreement="exact")
+
+    rows, cols, rank = LORA
+    weight = torch.from_numpy(rng.standard_normal((rows, cols), np.float32))
+    pair = {"down": rng.standard_normal((rank, cols), np.float32),
+            "up": rng.standard_normal((rows, rank), np.float32) * 0.05,
+            "alpha": 8.0}
+    want = lora.merge_lora({"w": weight}, {"w": pair}, 0.8)["w"]
+    on_card = {"w": weight.to(device)}
+    got = lora.merge_lora(on_card, {"w": pair}, 0.8)["w"]
+    relative = _max_err(got.cpu(), want) / float(want.abs().max())
+    _check("merge_lora card vs CPU (relative)", relative,
+           BOUNDS["lora_relative"])
+    flags = torch.backends.cuda.matmul
+    flags.allow_tf32 = True
+    try:
+        with_tf32 = lora.merge_lora(on_card, {"w": pair}, 0.8)["w"]
+    finally:
+        flags.allow_tf32 = False
+    if not torch.equal(with_tf32, got):
+        raise AssertionError("merge_lora changed with TF32 allowed")
+    ms = _cuda_ms(lambda: lora.merge_lora(on_card, {"w": pair}, 0.8), reps)
+    _say("merge-lora", weight=f"{rows}x{cols}", rank=rank,
+         relative_err=f"{relative:.3g}<={BOUNDS['lora_relative']:g}",
+         tf32_allowed="bit-identical", ms=f"{ms:.4f}")
+
+
+def face_repair_and_secondary_ops(device) -> None:
+    """Phase 15: the Face Fix job, its pipeline, targeted face repair, a
+    4K paste-back and the secondary ops.  No TPU kernel lies on these
+    paths, so the run (counts set to 0 just before, read just after) must
+    launch none of the six kernels."""
+    import cv2
+
+    from vrgdg_tpu_torch.jobs import face_fix as ff
+    from vrgdg_tpu_torch.kernels import build
+
+    if getattr(cv2, "FaceDetectorYN", None) is None and \
+            getattr(cv2, "FaceDetectorYN_create", None) is None:
+        raise AssertionError("cv2 has no FaceDetectorYN: the face phases "
+                             "need YuNet")
+    detector = ff.load_default_detector()
+    frames, fps, (width, height) = FACE_CLIP
+    with tempfile.TemporaryDirectory() as folder:
+        clip = _face_clip(os.path.join(folder, "face.mp4"), frames, fps,
+                          width, height, 80)
+        build.reset_launch_counts()
+        _face_fix_job(device, os.path.join(folder, "job"), clip, detector)
+        _face_pipeline(device, clip, detector)
+        _face_repair(device, folder, clip)
+        _paste_back_4k(device)
+        _secondary_ops(device)
+        launched = {name: count for name, count in build.LAUNCHES.items()
+                    if count}
+    if launched:
+        raise AssertionError(f"the face and secondary-op paths launched "
+                             f"{launched}")
+    _say("face-and-secondary-ops", kernels_launched=0)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1652,6 +2167,7 @@ def main() -> int:
     launches["film_grain"] += enhance_path(device, card)["film_grain"]
     enhancer_job(device)
     images_and_compare(device)
+    face_repair_and_secondary_ops(device)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

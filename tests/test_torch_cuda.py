@@ -486,3 +486,54 @@ def test_image_lut_and_compare_videos_on_card_match_cpu(tmp_path):
         assert got.shape == want.shape
         diff = np.abs(got - want)
         assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_eager_lut_on_card_is_bit_identical_to_cpu():
+    """The lerps are float32 products and float64 sums rounded once, each
+    its own torch op: no contraction, so the card gives the CPU's bits."""
+    from vrgdg_tpu_torch.ops.lut import apply_lut, apply_lut_bundle
+    from vrgdg_tpu_torch.core.cube import corner_bundle
+
+    device = _card()
+    lut = parse_cube(LUT)
+    frames = torch.from_numpy(np.random.default_rng(5).random(
+        (2, 67, 101, 4), np.float32))
+    want = apply_lut(frames, lut, strength=7.0)
+    assert torch.equal(apply_lut(frames.to(device), lut,
+                                 strength=7.0).cpu(), want)
+    bundle = torch.as_tensor(corner_bundle(lut.table))
+    assert torch.equal(apply_lut_bundle(frames.to(device), bundle.to(device),
+                                        lut.domain_min, lut.domain_max,
+                                        7.0).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_face_composites_on_card_match_cpu():
+    """ellipse_composite (lanczos4, a feather wider than the box),
+    radial_face_composite and paste_back on the card against the CPU."""
+    import importlib
+
+    pb = importlib.import_module("vrgdg_tpu_torch.ops.paste_back")
+    device = _card()
+    rng = np.random.default_rng(6)
+    frame = torch.from_numpy(rng.random((3, 120, 160, 3), np.float32))
+    crop = torch.from_numpy(rng.random((3, 64, 64, 3), np.float32))
+    for feather in (6, 40):
+        want = pb.ellipse_composite(frame[0], crop[0], (30, 20, 61, 51),
+                                    feather)
+        got = pb.ellipse_composite(frame[0].to(device), crop[0].to(device),
+                                   (30, 20, 61, 51), feather)
+        assert float((got.cpu() - want).abs().max()) <= 1e-5
+    entries = [{"box": (10, 10, 90, 100), "strength": 1.0}, {"box": None},
+               {"box": (50, 0, 160, 90), "strength": 0.5}]
+    want = pb.radial_face_composite(crop, frame, entries)
+    got = pb.radial_face_composite(crop.to(device), frame.to(device), entries)
+    assert got[2] == want[2] == 2
+    for a, b in zip(got[:2], want[:2]):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+    data = ((160, 120), (40, 30, 120, 110))
+    want = pb.paste_back(frame, crop[:1], data)
+    got = pb.paste_back(frame.to(device), crop[:1].to(device), data)
+    for a, b in zip(got, want):
+        assert float((a.cpu() - b).abs().max()) <= 2e-5

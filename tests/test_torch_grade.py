@@ -266,7 +266,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "vrgdg_tpu_torch.ops.resize, vrgdg_tpu_torch.native, "
             "vrgdg_tpu_torch.api, vrgdg_tpu_torch.api.compare, "
             "vrgdg_tpu_torch.ops.compare, vrgdg_tpu_torch.runtime.image_io, "
-            "vrgdg_tpu_torch.runtime.media_loaders\n"
+            "vrgdg_tpu_torch.runtime.media_loaders, "
+            "vrgdg_tpu_torch.jobs.face_fix, "
+            "vrgdg_tpu_torch.jobs.face_fix_pipeline, "
+            "vrgdg_tpu_torch.jobs.face_repair, vrgdg_tpu_torch.ops.face, "
+            "vrgdg_tpu_torch.ops.paste_back, vrgdg_tpu_torch.ops.schedules, "
+            "vrgdg_tpu_torch.ops.reference_images, vrgdg_tpu_torch.ops.grid, "
+            "vrgdg_tpu_torch.ops.image_switch, vrgdg_tpu_torch.ops.lora\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'vrgdg_tpu' or "
             "m.startswith('vrgdg_tpu.') or m.split('.')[0] == 'PIL']\n"

@@ -8,15 +8,13 @@ Pillow is used here only, as the reference of the cv2 rules: decoded
 pixels equal (EXIF orientation ignored by ``read_rgb``, applied by
 ``read_rgb_exif_transposed``), JPEG bytes equal at quality 75, WebP equal
 decoded at quality 80, PNG/BMP lossless, and Pillow's LANCZOS resize bit
-for bit.  One divergence is held as found: a 16-bit grayscale PNG, which
-Pillow clips to 255 and cv2 shifts down by 8 bits.
+for bit, and 16-bit PNGs of all four colour types as Pillow reads them
+(a gray one clipped at 255, the others' high byte).
 
 Outputs against the JAX package's, decoded: PNG round trips (identity
-adjust) and the selection compare modes are exact; LUT, adjust and the
-blend compare modes within one level on at most 0.1% of values.  The
-identity LUT is within one level and 2 float32 ulps: XLA's CPU build fuses
-the lerps' multiply-adds, torch rounds each product, and an ulp below a
-level boundary truncates one level lower (ROADMAP queue 3).  The grain
+adjust), the identity LUT (its lerps round as XLA's fused multiply-adds)
+and the selection compare modes are exact; LUT, adjust and the blend
+compare modes within one level on at most 0.1% of values.  The grain
 streams differ by design (Philox against threefry), so the grain image is
 held to its determinism and to the JAX output's noise level.
 """
@@ -25,6 +23,8 @@ import glob
 import json
 import os
 import re
+import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -140,17 +140,40 @@ def test_read_png_modes_as_pillow(tmp_path, mode):
                                   _pil(path, transpose=True))
 
 
-def test_read_16bit_gray_png_diverges_as_logged(tmp_path):
-    """Pillow opens it as I;16 and clips to 255 on convert("RGB"); cv2
-    keeps the high byte.  Max error 254 levels (ROADMAP queue 3)."""
-    path = str(tmp_path / "gray16.png")
-    ramp = np.arange(0, 65536, 257, dtype=np.uint16).reshape(16, 16)
-    Image.fromarray(ramp).save(path)
-    got, want = image_io.read_rgb(path), _pil(path)
-    np.testing.assert_array_equal(got[..., 0], (ramp >> 8).astype(np.uint8))
-    np.testing.assert_array_equal(want[..., 0],
-                                  np.minimum(ramp, 255).astype(np.uint8))
-    assert int(np.abs(got.astype(int) - want).max()) == 254
+def _png16(path, values, color_type):
+    """A 16-bit PNG of ``values`` (H, W, channels) in the given IHDR colour
+    type, written with zlib (Pillow cannot write all four types)."""
+    height, width = values.shape[:2]
+    rows = b"".join(b"\x00" + values[y].astype(">u2").tobytes()
+                    for y in range(height))
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", width, height, 16, color_type, 0, 0, 0)
+    with open(path, "wb") as handle:
+        handle.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                     + chunk(b"IDAT", zlib.compress(rows)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("color_type,channels",
+                         [(0, 1), (4, 2), (2, 3), (6, 4)],
+                         ids=["gray", "gray_alpha", "rgb", "rgba"])
+def test_read_16bit_gray_png_matches_pillow(tmp_path, color_type, channels):
+    """Pillow opens a 16-bit gray PNG as I;16 and clips at 255 on
+    convert("RGB"); the other 16-bit types keep each value's high byte."""
+    path = str(tmp_path / "image16.png")
+    values = np.random.default_rng(color_type).integers(
+        0, 65536, (16, 20, channels)).astype(np.uint16)
+    # the edges of both rules: 255/256, the high-byte steps, the extremes
+    values[0, :, 0] = [0, 1, 127, 128, 255, 256, 257, 383, 384, 511, 512,
+                       1000, 32767, 32768, 40000, 65279, 65280, 65535, 200,
+                       300]
+    _png16(path, values, color_type)
+    np.testing.assert_array_equal(image_io.read_rgb(path), _pil(path))
+    np.testing.assert_array_equal(image_io.read_rgb_exif_transposed(path),
+                                  _pil(path, transpose=True))
 
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
@@ -230,21 +253,17 @@ def test_teal_orange_lut_image_matches_jax(image, tmp_path):
 def test_identity_lut_image_matches_jax(image, tmp_path):
     got, want = _both("apply_lut_to_image", image, tmp_path, "identity.cube",
                       7.0)
-    # JAX returns every input level; the port one level lower on some
-    # (7.19% of this image's values), never higher
+    # JAX returns every input level, and so does the port
     np.testing.assert_array_equal(_decoded(want), _decoded(image))
-    diff = _decoded(got) - _decoded(want)
-    assert diff.min() >= -1 and diff.max() == 0
-    assert (diff != 0).mean() < 0.1
-    # the float results are 2 ulps apart at most
+    np.testing.assert_array_equal(_decoded(got), _decoded(want))
+    # the lerps round as XLA's fused multiply-adds do: the floats are equal
     x = image_io.read_rgb(image).astype(np.float32)[None] / 255.0
     lut = jparse_cube(os.path.join(LUTS, "identity.cube"))
     jax_out = np.asarray(jgrade(x, JConfig(lut=JLUTParams.normalize(7.0)),
                                 lut=lut))
     port_out = tap._lut_effect("identity.cube", 7.0, None, "cpu")[0](
         torch.from_numpy(x), 0).numpy()
-    assert np.max(np.abs(port_out - jax_out)) <= 2 * np.spacing(
-        np.float32(1.0))
+    np.testing.assert_array_equal(port_out, jax_out)
 
 
 def test_adjust_image_matches_jax(image, tmp_path):

@@ -8,6 +8,12 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
   grain    — seeded film grain on a video
   adjust   — 13-slider adjust stack on a video or image
   enhance  — the Standalone Video Enhancer job (segmented, resumable)
+  face-fix — the distant-face repair job engine (estimate, prepare,
+             accept-crop, accept-anchor, inputs, accept-ltx, finalize;
+             finalize composites on the device)
+  face-repair — targeted far-face repair (prepare, composite,
+             contact-sheet, rebuild-video; the lanczos4 resizes run on the
+             device)
   compare  — A/B comparison renders (side_by_side/slider/overlay/
              difference/blink) of two images or two videos
   luts     — list bundled LUTs
@@ -81,6 +87,56 @@ def _enhance(args, device) -> None:
         sys.exit(1)
 
 
+def _face_fix(args, device) -> None:
+    from .jobs import face_fix as ff
+
+    payload = json.loads(args.payload)
+    if args.video:
+        payload.setdefault("video_path", args.video)
+    if args.manifest:
+        payload.setdefault("manifest_path", args.manifest)
+    if args.whole_scene:
+        payload.setdefault("whole_scene", True)
+    actions = {
+        "estimate": ff.estimate_anchors,
+        "prepare": ff.prepare_face_fix,
+        "accept-crop": ff.accept_enhanced_crop,
+        "accept-anchor": ff.accept_enhanced_anchor,
+        "inputs": ff.build_ltx_inputs,
+        "accept-ltx": ff.accept_ltx_frames,
+        "finalize": lambda p: ff.finalize_face_fix(p, device=device),
+    }
+    _print(actions[args.action](payload))
+
+
+def _face_repair(args, device) -> None:
+    from .jobs import face_repair as fr
+
+    if args.action == "prepare":
+        _print(fr.prepare(
+            args.video, args.ranges, args.out,
+            detector=args.detector, face_choice=args.face_choice,
+            manual_box=args.manual_box,
+            min_confidence=args.min_confidence,
+            padding=args.padding, feather=args.feather,
+            overwrite=args.overwrite))
+    elif args.action == "composite":
+        _print(fr.composite(
+            args.manifest, repaired_dir=args.repaired_dir,
+            out_dir=args.out, feather=args.feather,
+            color_match=args.color_match, device=device))
+    elif args.action == "contact-sheet":
+        _print(fr.contact_sheet(
+            args.manifest, repaired_dir=args.repaired_dir,
+            out_path=args.out, limit=args.limit,
+            columns=args.columns, thumb_width=args.thumb_width,
+            device=device))
+    else:
+        _print(fr.rebuild_video(
+            args.manifest, args.out, fixed_dir=args.fixed_dir,
+            only_ranges=args.only_ranges, device=device))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="vrgdg-tpu-torch",
@@ -126,6 +182,50 @@ def main(argv=None):
     p.add_argument("--settings", default="{}", help="JSON enhancer settings")
     p.add_argument("--resume", default="", help="job id to resume")
     p.add_argument("--output-root", default=None)
+    _add_device(p)
+
+    p = sub.add_parser("face-fix", help="distant-face repair job engine")
+    p.add_argument("action",
+                   choices=["estimate", "prepare", "accept-crop",
+                            "accept-anchor", "inputs", "accept-ltx",
+                            "finalize"])
+    p.add_argument("--payload", default="{}",
+                   help="JSON payload (fields per "
+                        "vrgdg_tpu_torch.jobs.face_fix)")
+    p.add_argument("--video", default=None, help="shortcut: video_path")
+    p.add_argument("--manifest", default=None, help="shortcut: manifest_path")
+    p.add_argument("--whole-scene", action="store_true")
+    _add_device(p)
+
+    p = sub.add_parser(
+        "face-repair",
+        help="targeted far-face repair: prepare/composite/sheet/rebuild")
+    p.add_argument("action", choices=["prepare", "composite",
+                                      "contact-sheet", "rebuild-video"])
+    p.add_argument("--video", default="", help="prepare: source video")
+    p.add_argument("--ranges", default="",
+                   help="prepare: frame ranges, e.g. 120-160,300-318")
+    p.add_argument("--out", default="", help="output folder / file")
+    p.add_argument("--manifest", default="",
+                   help="composite/sheet/rebuild: manifest.json path")
+    p.add_argument("--detector", default="auto",
+                   choices=["auto", "opencv"])
+    p.add_argument("--face-choice", default="largest",
+                   choices=["largest", "center"])
+    p.add_argument("--manual-box", default="",
+                   help="forced face box: x,y,w,h or x1,y1,x2,y2")
+    p.add_argument("--min-confidence", type=float, default=0.35)
+    p.add_argument("--padding", type=float, default=2.35)
+    p.add_argument("--feather", type=int, default=18,
+                   help="composite: -1 keeps the saved masks")
+    p.add_argument("--overwrite", action="store_true")
+    p.add_argument("--repaired-dir", default="")
+    p.add_argument("--color-match", action="store_true")
+    p.add_argument("--limit", type=int, default=24)
+    p.add_argument("--columns", type=int, default=3)
+    p.add_argument("--thumb-width", type=int, default=900)
+    p.add_argument("--fixed-dir", default="")
+    p.add_argument("--only-ranges", action="store_true")
     _add_device(p)
 
     p = sub.add_parser("compare", help="render an A/B comparison")
@@ -176,6 +276,12 @@ def main(argv=None):
         parser.error(str(exc))
     if args.command == "enhance":
         _enhance(args, device)
+        return
+    if args.command == "face-fix":
+        _face_fix(args, device)
+        return
+    if args.command == "face-repair":
+        _face_repair(args, device)
         return
     if args.command == "compare":
         from .api import compare

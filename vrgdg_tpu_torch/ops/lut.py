@@ -36,18 +36,31 @@ def _coords(source: torch.Tensor, dmin, dmax, max_index: int):
     return lo.to(torch.int64), frac
 
 
+def _lerp(a: torch.Tensor, b: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """``a * (1 - f) + b * f`` in float32 with the JAX package's CPU
+    rounding: XLA fuses the sum into one multiply-add,
+    ``fma(a, 1 - f, fl(b * f))``.  The product ``a * (1 - f)`` of two
+    float32 values is exact in float64, so the float64 sum rounded to
+    float32 is that multiply-add, but where the float64 rounding lands on
+    a float32 halfway point (rare).  Each step is its own torch op, so a
+    card gives the CPU's bits."""
+    tail = (b * f).to(torch.float64)
+    return (a.to(torch.float64) * (1.0 - f).to(torch.float64)
+            + tail).to(torch.float32)
+
+
 def _trilerp(corners, frac: torch.Tensor) -> torch.Tensor:
     """``corners[k]`` is the ``(..., 3)`` value at corner k in the order
     ``[c000, c100, c010, c110, c001, c101, c011, c111]`` (digits blue,
     green, red; 0 = lo, 1 = hi)."""
     fr, fg, fb = frac[..., 0:1], frac[..., 1:2], frac[..., 2:3]
-    c00 = corners[0] * (1.0 - fb) + corners[1] * fb
-    c01 = corners[2] * (1.0 - fb) + corners[3] * fb
-    c10 = corners[4] * (1.0 - fb) + corners[5] * fb
-    c11 = corners[6] * (1.0 - fb) + corners[7] * fb
-    c0 = c00 * (1.0 - fg) + c01 * fg
-    c1 = c10 * (1.0 - fg) + c11 * fg
-    return torch.clamp(c0 * (1.0 - fr) + c1 * fr, 0.0, 1.0)
+    c00 = _lerp(corners[0], corners[1], fb)
+    c01 = _lerp(corners[2], corners[3], fb)
+    c10 = _lerp(corners[4], corners[5], fb)
+    c11 = _lerp(corners[6], corners[7], fb)
+    c0 = _lerp(c00, c01, fg)
+    c1 = _lerp(c10, c11, fg)
+    return torch.clamp(_lerp(c0, c1, fr), 0.0, 1.0)
 
 
 def _finish(frames: torch.Tensor, source: torch.Tensor, graded: torch.Tensor,
@@ -56,7 +69,7 @@ def _finish(frames: torch.Tensor, source: torch.Tensor, graded: torch.Tensor,
     # as in the reference's eager path
     blend = torch.clamp(torch.tensor(float(strength), dtype=torch.float32,
                                      device=frames.device), 0.0, 10.0) / 10.0
-    mixed = (source * (1.0 - blend) + graded * blend).to(frames.dtype)
+    mixed = _lerp(source, graded, blend).to(frames.dtype)
     if frames.shape[-1] > 3:
         out = frames.clone()
         out[..., :3] = mixed

@@ -6,7 +6,9 @@ Pillow's pixels through cv2 and numpy, and every still image of the port
 goes through them:
 
 - :func:`read_rgb` is ``Image.open(path).convert("RGB")``: EXIF
-  orientation is ignored (cv2 applies it unless told not to);
+  orientation is ignored (cv2 applies it unless told not to), and a
+  16-bit PNG comes out as Pillow's 8 bits (gray clipped at 255, the other
+  colour types' high byte);
 - :func:`read_rgb_exif_transposed` is ``ImageOps.exif_transpose(...)
   .convert("RGB")``: EXIF orientation applied;
 - :func:`write_rgb` is ``Image.fromarray(u8).save(path)`` at Pillow's
@@ -32,18 +34,40 @@ import numpy as np
 # lossless either way)
 _JPEG_QUALITY = 75
 _WEBP_QUALITY = 80
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 # Resample.c: 8-bit coefficients carry 32 - 8 - 2 fractional bits
 _PRECISION_BITS = 22
 _LANCZOS_SUPPORT = 3.0
 
 
+def _png_16bit_color_type(path) -> int | None:
+    """The IHDR colour type of a 16-bit PNG (0 gray, 2 RGB, 4 gray+alpha,
+    6 RGBA), None for any other file."""
+    with open(path, "rb") as handle:
+        head = handle.read(26)
+    if len(head) < 26 or head[:8] != _PNG_SIGNATURE or head[12:16] != b"IHDR":
+        return None
+    return head[25] if head[24] == 16 else None
+
+
 def _imread(path, flags: int) -> np.ndarray:
     import cv2
 
-    bgr = cv2.imread(os.fspath(path), flags)
+    path = os.fspath(path)
+    color_type = _png_16bit_color_type(path)
+    if color_type is not None:
+        flags |= cv2.IMREAD_ANYDEPTH
+    bgr = cv2.imread(path, flags)
     if bgr is None:
-        raise ValueError(f"Could not read the image {os.fspath(path)}.")
+        raise ValueError(f"Could not read the image {path}.")
+    if color_type == 0:
+        # Pillow opens a 16-bit gray PNG as I;16, and convert("RGB")
+        # clips each value at 255
+        bgr = np.minimum(bgr, 255).astype(np.uint8)
+    elif color_type is not None:
+        # gray+alpha, RGB and RGBA: Pillow keeps each value's high byte
+        bgr = (bgr >> 8).astype(np.uint8)
     return np.ascontiguousarray(bgr[..., ::-1])
 
 
