@@ -85,10 +85,29 @@ Phases, one line each (any failure raises and the exit code is not 0):
     ``batch_reference_images``, ``build_msr_reference`` and
     ``switch_dynamic`` at 1080p and ``merge_lora`` at rank 16 into a 4096
     x 4096 weight against the CPU.  No TPU kernel lies on these paths: the
-    run must launch none of the six.
+    run must launch none of the six;
+16. parallel, on mesh entries that all name the card (the shard
+    arithmetic; NCCL across cards and a multi-card speed-up cannot be
+    shown on one card): ``grade_on_mesh`` in fused mode at 4K x 3 on
+    ``[cuda:0] * 2`` (pads to 4, trims to 3) bit-identical to one device,
+    grain on, with one ``grade_phase1`` and one ``grade_phase2`` launch a
+    shard and its CUDA-event ms beside one device's; the eager flagship
+    stack plus clarity 30 and sharpen 10 at 1080p x 2 height-sharded
+    (``data=1, space=2``, <= 1e-5) and frame-sharded (bit-identical); the
+    enhance step 1080p -> 4K on 3 frames frame-sharded (bit-identical, one
+    ``film_grain`` launch a shard) and height-sharded (<= 1e-5), and a
+    height shard's ``film_grain`` against the whole frame's rows (bit for
+    bit); a one-rank NCCL group in a process of its own
+    (``python -m vrgdg_tpu_torch.parallel``: a global mesh and
+    ``grade_on_mesh`` through the all-gather, bit-identical); two
+    ``enhance --shard-index`` processes sharing the card on a seeded
+    120-frame 1080p clip at 12 fps, byte-identical to an in-process
+    ``render_job``, with both wall times; and
+    ``vrgdg_tpu_torch.entry.dryrun_multichip(4, [cuda:0] * 4)``.
 
-Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15) is driven with the
-launch counts set to 0 just before it and read just after; launches made
+Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, and 16's
+mesh runs) is driven with the launch counts set to 0 just before it and
+read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
 three lines are the kernels' JSON record (with each kernel's bound at 4K
@@ -152,6 +171,13 @@ FACE_CLIP = (72, 24.0, (1920, 1080))
 FACE_SCALE = 0.6
 FACE_REPAIR_RANGES = ("0-11,40-51", 24)               # ranges, frames
 PASTE_4K = ((2160, 3840), 512, (1600, 800, 2300, 1500))
+# phase 16: the fused grade on a mesh at 4K x 3 (pads to 4), the eager
+# stack height-sharded at 1080p x 2, the enhance step 1080p -> 4K on 3
+# frames, and the segment scheduler on a 10 s 1080p clip at 12 fps
+PARALLEL_FUSED = (3, 2160, 3840)
+PARALLEL_EAGER = (2, 1080, 1920)
+PARALLEL_ENHANCE = (3, 1080, 1920)
+SCHEDULER_CLIP = (120, 12.0, (1920, 1080))
 SECONDARY = (1080, 1920)                              # H, W
 LORA = (4096, 4096, 16)
 # kernel vs plain on the card: nvcc contracts a*b+c into FMAs and its
@@ -166,7 +192,7 @@ BOUNDS = {"lab": 5e-4, "coeff": 1e-5, "rgb_grain_off": 2e-5,
           "resample_cv2": 1e-3, "compare_blend": 1e-6,
           "compare_letterbox": 1e-5, "face_crops": 2e-5,
           "face_composite": 1e-4, "paste_back_4k": 2e-5, "bilinear": 2e-5,
-          "lanczos4": 1e-5, "lora_relative": 1e-5}
+          "lanczos4": 1e-5, "lora_relative": 1e-5, "spatial": 1e-5}
 # NVIDIA's H100 SXM data sheet (at the 700 W limit): HBM bandwidth, and
 # the float32 and float64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -2106,6 +2132,224 @@ def face_repair_and_secondary_ops(device) -> None:
     torch.cuda.empty_cache()
 
 
+def _counted(run) -> tuple[object, dict]:
+    """``run()``'s result and the kernel launches it made, the counts set
+    to 0 just before and read just after."""
+    from vrgdg_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    result = run()
+    torch.cuda.synchronize()
+    return result, {k: v for k, v in build.LAUNCHES.items() if v}
+
+
+def _expect(label: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise AssertionError(f"{label} launched {counts}, expected {want}")
+
+
+def _add(total: dict, counts: dict) -> None:
+    for name, count in counts.items():
+        total[name] = total.get(name, 0) + count
+
+
+def _parallel_grades(device, config, lut, ref_stats, card: str,
+                     launches: dict) -> None:
+    """Phase 16's lines 1-2: the fused grade_on_mesh at 4K x 3 on two
+    mesh entries of the card, and the eager stack height- and
+    frame-sharded at 1080p x 2."""
+    from vrgdg_tpu_torch.core.params import AdjustSettings
+    from vrgdg_tpu_torch.ops.grade import grade
+    from vrgdg_tpu_torch.parallel import grade_on_mesh, make_mesh
+
+    count, height, width = PARALLEL_FUSED
+    frames = _frames((count, height, width), 1600, device)
+    mesh = make_mesh(devices=[device] * 2)
+    run = lambda: grade_on_mesh(frames, config, mesh, lut=lut,  # noqa: E731
+                                ref_stats=ref_stats)
+    sharded, counts = _counted(run)
+    _expect("fused grade_on_mesh", counts,
+            {"grade_phase1": 2, "grade_phase2": 2})
+    _add(launches, counts)
+    single = grade(frames, config, lut=lut, ref_stats=ref_stats)
+    if sharded.shape != frames.shape or not torch.equal(sharded, single):
+        raise AssertionError("fused grade_on_mesh differs from one device")
+    mesh_ms = _cuda_ms(run, 5)
+    single_ms = _cuda_ms(lambda: grade(frames, config, lut=lut,
+                                       ref_stats=ref_stats), 5)
+    _say("parallel-fused", frames=f"{count}x{height}x{width}",
+         mesh="[cuda:0]x2", padded_to=4, trimmed_to=count,
+         vs_one_device="bit-identical", grain="on",
+         grade_phase1_launches=counts.get("grade_phase1", 0),
+         grade_phase2_launches=counts.get("grade_phase2", 0),
+         mesh_ms=f"{mesh_ms:.4f}", one_device_ms=f"{single_ms:.4f}",
+         note="sharding_cost_on_one_card_not_a_multi_card_speedup",
+         card=f"'{card}'")
+    del frames, sharded, single
+
+    eager = dataclasses.replace(config, fused_mode="eager",
+                                adjust=AdjustSettings.normalize({
+                                    **FLAGSHIP["adjust"], "clarity": 30.0,
+                                    "sharpen": 10.0}))
+    count, height, width = PARALLEL_EAGER
+    frames = _frames((count, height, width), 1601, device)
+    single = grade(frames, eager, lut=lut, ref_stats=ref_stats)
+    spatial = grade_on_mesh(frames, eager, make_mesh(devices=[device] * 2,
+                                                     spatial=2),
+                            lut=lut, ref_stats=ref_stats, spatial=True)
+    err = _max_err(spatial, single)
+    _check("spatial eager grade", err, BOUNDS["spatial"])
+    dp = grade_on_mesh(frames, eager, mesh, lut=lut, ref_stats=ref_stats)
+    if not torch.equal(dp, single):
+        raise AssertionError("frame-sharded eager grade differs from one "
+                             "device")
+    _say("parallel-spatial", frames=f"{count}x{height}x{width}",
+         mesh="data=1,space=2", stack="flagship+clarity30+sharpen10",
+         grain="eager", err=f"{err:.3g}<={BOUNDS['spatial']:g}",
+         frame_dp="bit-identical")
+    del frames, single, spatial, dp
+    torch.cuda.empty_cache()
+
+
+def _parallel_enhance(device, launches: dict) -> None:
+    """Phase 16's line 3: the enhancer step on two mesh entries of the
+    card, frame-sharded then height-sharded, and a height shard's
+    ``film_grain`` against the whole frame's rows."""
+    from vrgdg_tpu_torch.core.params import EnhancerSettings
+    from vrgdg_tpu_torch.jobs import enhancer
+    from vrgdg_tpu_torch.kernels.grain_cuda import film_grain_kernel
+    from vrgdg_tpu_torch.parallel import make_mesh
+
+    settings = EnhancerSettings.normalize(ENHANCE)
+    (count, src_h, src_w), (out_w, out_h) = PARALLEL_ENHANCE, ENHANCE_SIZE
+    frames = np.random.default_rng(1602).integers(
+        0, 256, (count, src_h, src_w, 3), np.uint8)
+    single = enhancer.apply_effects_batch(frames, settings, out_h, out_w, 5,
+                                          device=device)
+    dp, counts = _counted(lambda: enhancer.apply_effects_batch(
+        frames, settings, out_h, out_w, 5,
+        mesh=make_mesh(devices=[device] * 2)))
+    _expect("enhance step, data=2", counts, {"film_grain": 2})
+    _add(launches, counts)
+    if dp.shape != single.shape or not np.array_equal(dp, single):
+        raise AssertionError("frame-sharded enhance step differs from one "
+                             "device")
+    spatial, counts = _counted(lambda: enhancer.apply_effects_batch(
+        frames, settings, out_h, out_w, 5,
+        mesh=make_mesh(devices=[device] * 2, spatial=2)))
+    _expect("enhance step, space=2", counts, {"film_grain": 2})
+    _add(launches, counts)
+    err = float(np.abs(spatial - single).max())
+    _check("spatial enhance step", err, BOUNDS["spatial"])
+    del dp, spatial, single
+
+    whole_frames = _frames((1, out_h, out_w), 1603, device)
+    args = (FLAGSHIP["grain_intensity"], FLAGSHIP["saturation_mix"],
+            FLAGSHIP["seed"])
+    whole = film_grain_kernel(whole_frames, *args, frame_start=9)
+    half = out_h // 2
+    shard = film_grain_kernel(whole_frames[:, half:].contiguous(), *args,
+                              frame_start=9, row_start=half,
+                              frame_height=out_h)
+    if not torch.equal(shard, whole[:, half:]):
+        raise AssertionError("a height shard's film_grain differs from the "
+                             "whole frame's rows")
+    _say("parallel-enhance", frames=count,
+         size=f"{src_h}x{src_w}->{out_h}x{out_w}",
+         frame_dp="bit-identical", film_grain_launches_dp=2,
+         space2_err=f"{err:.3g}<={BOUNDS['spatial']:g}",
+         film_grain_launches_space2=2,
+         film_grain_rows=f"[{half},{out_h})_bit-identical")
+    del whole_frames, whole, shard
+    torch.cuda.empty_cache()
+
+
+def _parallel_nccl(device) -> None:
+    """Phase 16's line 4: a one-rank NCCL group (in a process of its own,
+    with a time limit): ``initialize_distributed`` on the card, a global
+    mesh, ``grade_on_mesh`` through the NCCL all-gather against one
+    device, then the group destroyed."""
+    import socket
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    started = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "vrgdg_tpu_torch.parallel",
+         f"127.0.0.1:{port}", "1", "0"], capture_output=True, text=True,
+        timeout=180, cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = (done.stdout.strip().splitlines() or [""])[-1]
+    if done.returncode != 0 or "GRADE OK" not in line \
+            or "backend=nccl" not in line:
+        raise AssertionError(f"NCCL self-check failed (exit "
+                             f"{done.returncode}): {line}\n"
+                             f"{done.stderr[-2000:]}")
+    _say("parallel-nccl", world_size=1, result=f"'{line}'",
+         all_gather="bit-identical",
+         seconds=f"{time.perf_counter() - started:.2f}")
+
+
+def _parallel_scheduler(device) -> None:
+    """Phase 16's line 5: two ``enhance --shard-index`` processes share
+    the card on a seeded 120-frame 1080p clip at 12 fps (two segments);
+    their joined output against an in-process ``render_job``'s, byte for
+    byte."""
+    from vrgdg_tpu_torch.entry import (SCHEDULER_SETTINGS,
+                                       run_scheduler_workers)
+    from vrgdg_tpu_torch.jobs import enhancer
+
+    frames, fps, (width, height) = SCHEDULER_CLIP
+    with tempfile.TemporaryDirectory() as folder:
+        clip = _write_clip(os.path.join(folder, "clip.mp4"), frames, fps,
+                           width, height, 1604)
+        started = time.perf_counter()
+        final = run_scheduler_workers(clip, os.path.join(folder, "dist"),
+                                      str(device), timeout=300)
+        shards_s = time.perf_counter() - started
+        registry = enhancer.JobRegistry()
+        started = time.perf_counter()
+        enhancer.render_job("single", {"source_path": clip,
+                                       "settings": dict(SCHEDULER_SETTINGS)},
+                            registry=registry,
+                            base_folder=os.path.join(folder, "single"),
+                            device=device)
+        single_s = time.perf_counter() - started
+        snap = registry.snapshot("single")
+        if snap.get("status") != "complete":
+            raise AssertionError(f"render_job: {snap.get('error')}")
+        with open(final["output_path"], "rb") as a, \
+                open(snap["output_path"], "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("two-process scheduler output differs "
+                                     "from render_job's")
+    _say("parallel-scheduler", frames=frames, fps_in=fps,
+         size=f"{width}x{height}", segments=final["total_segments"],
+         processes=2, output="byte-identical",
+         two_process_wall_s=f"{shards_s:.3f}",
+         one_process_wall_s=f"{single_s:.3f}")
+
+
+def parallel_phase(device, config, lut, ref_stats, card: str) -> dict:
+    """Phase 16: the mesh, the enhancer on a mesh, NCCL at world size 1,
+    the segment scheduler and the dry run, on mesh entries that all name
+    the card (the shard arithmetic, not a multi-card speed-up); returns
+    the launches of the counted mesh runs."""
+    from vrgdg_tpu_torch.entry import dryrun_multichip
+
+    started = time.perf_counter()
+    launches: dict = {}
+    _parallel_grades(device, config, lut, ref_stats, card, launches)
+    _parallel_enhance(device, launches)
+    _parallel_nccl(device)
+    _parallel_scheduler(device)
+    result = dryrun_multichip(4, devices=[device] * 4)
+    _say("parallel-dryrun", devices="[cuda:0]x4",
+         result=json.dumps(result, separators=(",", ":")),
+         phase_s=f"{time.perf_counter() - started:.2f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2168,6 +2412,9 @@ def main() -> int:
     enhancer_job(device)
     images_and_compare(device)
     face_repair_and_secondary_ops(device)
+    for name, count in parallel_phase(device, config, lut, ref_stats,
+                                      card).items():
+        launches[name] = launches.get(name, 0) + count
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

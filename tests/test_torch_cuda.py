@@ -13,6 +13,7 @@ bounds against it.  The colour-match coefficients follow one rule at every
 frame size (:func:`_check_coefficients`).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -537,3 +538,54 @@ def test_face_composites_on_card_match_cpu():
     got = pb.paste_back(frame.to(device), crop[:1].to(device), data)
     for a, b in zip(got, want):
         assert float((a.cpu() - b).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_film_grain_height_shard_draws_the_whole_frames_rows():
+    device = _card()
+    frames = torch.rand((2, 70, 130, 3),
+                        generator=torch.Generator().manual_seed(8)).to(device)
+    whole = grain_cuda.film_grain_kernel(frames, 0.05, 0.5, 42,
+                                         frame_start=4)
+    for a, b in ((0, 33), (33, 70)):
+        part = grain_cuda.film_grain_kernel(
+            frames[:, a:b].contiguous(), 0.05, 0.5, 42, frame_start=4,
+            row_start=a, frame_height=70)
+        assert torch.equal(part, whole[:, a:b])
+    with pytest.raises(ValueError, match="do not lie"):
+        grain_cuda.film_grain_kernel(frames, 0.05, 0.5, 42, row_start=1,
+                                     frame_height=70)
+
+
+@pytest.mark.cuda
+def test_grade_on_mesh_on_one_card():
+    """Two mesh entries naming the card: the fused grade pads 3 frames to
+    4, launches each phase once a shard and equals one device bit for
+    bit; the eager stack height-sharded stays within 1e-5."""
+    from vrgdg_tpu_torch.core.params import AdjustSettings
+    from vrgdg_tpu_torch.ops.grade import grade
+    from vrgdg_tpu_torch.parallel import grade_on_mesh, make_mesh
+
+    device = _card()
+    config, lut, ref_stats = _config(device)
+    frames = torch.rand((3, 64, 96, 3),
+                        generator=torch.Generator().manual_seed(9)).to(device)
+    mesh = make_mesh(devices=[device] * 2)
+    gc.reset_launch_counts()
+    sharded = grade_on_mesh(frames, config, mesh, lut=lut,
+                            ref_stats=ref_stats, frame_start=2)
+    torch.cuda.synchronize()
+    assert (gc.LAUNCHES["grade_phase1"], gc.LAUNCHES["grade_phase2"]) == (2, 2)
+    assert torch.equal(sharded, grade(frames, config, lut=lut,
+                                      ref_stats=ref_stats, frame_start=2))
+    eager = dataclasses.replace(
+        config, fused_mode="eager",
+        adjust=AdjustSettings.normalize({**ADJUST, "clarity": 30,
+                                         "sharpen": 10}))
+    single = grade(frames, eager, lut=lut, ref_stats=ref_stats)
+    spatial = grade_on_mesh(frames, eager,
+                            make_mesh(devices=[device] * 2, spatial=2),
+                            lut=lut, ref_stats=ref_stats, spatial=True)
+    assert float((spatial - single).abs().max()) <= 1e-5
+    assert torch.equal(grade_on_mesh(frames, eager, mesh, lut=lut,
+                                     ref_stats=ref_stats), single)

@@ -36,6 +36,8 @@ from vrgdg_tpu.runtime import video_io as jvio
 from vrgdg_tpu_torch.core.params import EnhancerSettings
 from vrgdg_tpu_torch.jobs import enhancer as tenh
 from vrgdg_tpu_torch.jobs import manifest as tmf
+from vrgdg_tpu_torch.parallel import distributed as tdist
+from vrgdg_tpu_torch.parallel import make_mesh
 from vrgdg_tpu_torch.runtime import video_io as tvio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -183,19 +185,160 @@ def test_submit_is_deferred_and_uint8_quantizes_the_float_result():
 
 
 def test_mesh_for_settings_refuses_more_than_one_card(monkeypatch):
+    """Since the port has a mesh, more than one card builds one (as the
+    JAX package's ``mesh_for_settings`` does) instead of raising; one
+    card, the CPU and a device naming one card give ``None``."""
     settings = EnhancerSettings.normalize({})
+    monkeypatch.delenv(tdist.ENV_LOCAL_DEVICE_IDS, raising=False)
     assert tenh.mesh_for_settings(settings, "cpu") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tenh.mesh_for_settings(settings, "cuda") is None
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match='item "Parallel"'):
-        tenh.mesh_for_settings(settings, "cuda")
-    with pytest.raises(NotImplementedError):
-        tenh.mesh_for_settings(
-            EnhancerSettings.normalize({"data_parallel": 1,
-                                        "spatial_parallel": 2}), "cuda")
+    mesh = tenh.mesh_for_settings(settings, "cuda")
+    assert mesh.shape == {"data": 4, "space": 1} and mesh.size == 4
+    assert mesh.devices == tuple((torch.device("cuda", i),) for i in range(4))
+    assert not mesh.spans_processes
+    spatial = tenh.mesh_for_settings(EnhancerSettings.normalize(
+        {"data_parallel": 1, "spatial_parallel": 2}), "cuda")
+    assert spatial.shape == {"data": 1, "space": 2}
+    assert tenh.mesh_for_settings(EnhancerSettings.normalize(
+        {"data_parallel": 3}), "cuda").size == 3
     assert tenh.mesh_for_settings(
         EnhancerSettings.normalize({"data_parallel": 1}), "cuda") is None
+    assert tenh.mesh_for_settings(settings, "cuda:1") is None
+    monkeypatch.setenv(tdist.ENV_LOCAL_DEVICE_IDS, "1,3")
+    assert tenh.mesh_for_settings(settings, "cuda").devices == (
+        (torch.device("cuda", 1),), (torch.device("cuda", 3),))
+
+
+# --------------------------------------------------------------------------
+# the step on a mesh of CPU devices
+# --------------------------------------------------------------------------
+
+def _cpu_mesh(n=8, spatial=1):
+    return make_mesh(n, spatial=spatial, devices=[torch.device("cpu")] * n)
+
+
+def test_effects_batch_mesh_bit_identity():
+    settings = EnhancerSettings.normalize({
+        "sharpen_strength": 1.2, "grain_enabled": True,
+        "grain_intensity": 0.08, "seed": 99})
+    frames = np.random.default_rng(1).uniform(
+        0, 1, (5, 12, 16, 3)).astype(np.float32)   # 5 frames over 8: pads
+    single = tenh.apply_effects_batch(frames, settings, 24, 32,
+                                      frame_start=3, device="cpu")
+    sharded = tenh.apply_effects_batch(frames, settings, 24, 32,
+                                       frame_start=3, mesh=_cpu_mesh())
+    assert sharded.shape == single.shape
+    np.testing.assert_array_equal(single, sharded)
+    u8 = np.random.default_rng(2).integers(0, 256, (5, 12, 16, 3), np.uint8)
+    np.testing.assert_array_equal(
+        tenh.apply_effects_batch(u8, settings, 24, 32, 3, device="cpu",
+                                 as_uint8=True),
+        tenh.apply_effects_batch(u8, settings, 24, 32, 3, mesh=_cpu_mesh(),
+                                 as_uint8=True))
+
+
+@pytest.mark.parametrize("in_hw,out_hw", [
+    ((16, 24), (32, 48)),     # the JAX suite's spatial case
+    ((16, 20), (41, 30)),     # output rows that do not divide the axis
+    ((24, 20), (7, 30)),      # downscale
+    ((16, 24), (16, 36)),     # equal heights: no height halo
+])
+def test_effects_batch_spatial_sharding_tolerance(in_hw, out_hw):
+    """4 data x 2 space: lanczos4 reads its support's rows as a halo,
+    unsharp one row, grain the shard's rows of the whole frame's; within
+    1e-5 of one device (the products sum in another order)."""
+    settings = EnhancerSettings.normalize({
+        "sharpen_strength": 1.2, "grain_enabled": True,
+        "grain_intensity": 0.05, "seed": 5, "spatial_parallel": 2})
+    frames = np.random.default_rng(2).uniform(
+        0, 1, (4, *in_hw, 3)).astype(np.float32)
+    single = tenh.apply_effects_batch(frames, settings, *out_hw,
+                                      frame_start=0, device="cpu")
+    sharded = tenh.apply_effects_batch(frames, settings, *out_hw,
+                                       frame_start=0, mesh=_cpu_mesh(8, 2))
+    np.testing.assert_allclose(sharded, single, atol=1e-5, rtol=0)
+
+
+def test_effects_batch_spatial_matches_jax_grain_off():
+    payload = {"sharpen_strength": 1.2, "spatial_parallel": 2}
+    frames = np.random.default_rng(4).uniform(
+        0, 1, (4, 16, 24, 3)).astype(np.float32)
+    want = jenh.apply_effects_batch(
+        frames, jparams.EnhancerSettings.normalize(payload), 32, 48,
+        mesh=jenh.mesh_for_settings(
+            jparams.EnhancerSettings.normalize(payload)))
+    got = tenh.apply_effects_batch(frames, EnhancerSettings.normalize(payload),
+                                   32, 48, mesh=_cpu_mesh(8, 2))
+    assert np.max(np.abs(got - np.asarray(want))) <= 1e-5
+
+
+def test_spatial_only_when_the_height_divides_the_axis(monkeypatch):
+    """The JAX package's rule: a frame whose height does not divide the
+    space axis stays whole on its data row's first card."""
+    calls = []
+    real = tenh._enhance_rows
+    monkeypatch.setattr(tenh, "_enhance_rows",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    settings = EnhancerSettings.normalize({"spatial_parallel": 2,
+                                           "sharpen_strength": 1.0})
+    rng = np.random.default_rng(3)
+    odd = rng.uniform(0, 1, (4, 15, 24, 3)).astype(np.float32)  # 15 % 2
+    single = tenh.apply_effects_batch(odd, settings, 30, 48, device="cpu")
+    sharded = tenh.apply_effects_batch(odd, settings, 30, 48,
+                                       mesh=_cpu_mesh(8, 2))
+    np.testing.assert_array_equal(sharded, single)
+    assert calls == []
+    even = rng.uniform(0, 1, (4, 16, 24, 3)).astype(np.float32)
+    tenh.apply_effects_batch(even, settings, 32, 48, mesh=_cpu_mesh(8, 2))
+    assert len(calls) == 4   # one per data row
+
+
+def test_film_grain_row_start_draws_the_whole_frames_rows():
+    """The plain ``film_grain`` (the ``film_grain`` kernel's plain
+    version) on rows [a, b) with ``row_start=a`` equals rows [a, b) of
+    the whole frame's, bit for bit; rows past the frame are refused."""
+    from vrgdg_tpu_torch.kernels.grain_cuda import film_grain_kernel
+    from vrgdg_tpu_torch.ops.grain import film_grain
+
+    frames = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (3, 20, 12, 3)).astype(np.float32))
+    whole = film_grain(frames, 0.08, 0.4, 17, frame_start=6)
+    for a, b in ((0, 5), (5, 13), (13, 20)):
+        part = film_grain_kernel(frames[:, a:b].contiguous(), 0.08, 0.4, 17,
+                                 frame_start=6, row_start=a, frame_height=20)
+        assert torch.equal(part, whole[:, a:b])
+    with pytest.raises(ValueError, match="do not lie"):
+        film_grain(frames[:, :8], 0.08, 0.4, 17, row_start=15,
+                   frame_height=20)
+
+
+def test_full_job_mesh_vs_single_bit_identity(source_video, tmp_path,
+                                              monkeypatch):
+    """The job on a mesh of four CPU devices decodes equal to the job on
+    one, and reports the mesh in its status."""
+    outputs = {}
+    for name, mesh in (("mesh", _cpu_mesh(4)), ("single", None)):
+        monkeypatch.setattr(tenh, "mesh_for_settings",
+                            lambda settings, device, mesh=mesh: mesh)
+        registry = tenh.JobRegistry()
+        tenh.render_job("job", {"source_path": source_video,
+                                "settings": {**GRAIN, "segment_seconds": 5}},
+                        registry=registry, base_folder=str(tmp_path / name),
+                        device="cpu")
+        snap = registry.snapshot("job")
+        assert snap["status"] == "complete", snap.get("error")
+        assert snap["mesh_devices"] == (4 if mesh else 1)
+        assert snap["fps_per_chip"] > 0
+        outputs[name] = _decode(snap["output_path"])
+    np.testing.assert_array_equal(outputs["mesh"], outputs["single"])
+
+
+def test_upload_folder_matches_jax(tmp_path):
+    path = tenh.upload_folder(str(tmp_path))
+    assert path == jenh.upload_folder(str(tmp_path))
+    assert os.path.isdir(path)
 
 
 # --------------------------------------------------------------------------
@@ -211,12 +354,12 @@ def test_oom_bisection(monkeypatch):
     real = tenh.apply_effects_batch
 
     def flaky(frames, settings, out_h=None, out_w=None, frame_start=0, *,
-              device, as_uint8=False):
+              device, mesh=None, as_uint8=False):
         calls.append(len(frames))
         if len(frames) > 2:
             raise _oom()
         return real(frames, settings, out_h, out_w, frame_start,
-                    device=device)
+                    device=device, mesh=mesh)
 
     monkeypatch.setattr(tenh, "apply_effects_batch", flaky)
     settings = EnhancerSettings.normalize({"sharpen_strength": 1.0, **GRAIN})

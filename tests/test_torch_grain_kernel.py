@@ -30,7 +30,7 @@ from vrgdg_tpu_torch.ops import grain as tgrain
 tgrade = importlib.import_module("vrgdg_tpu_torch.ops.grade")
 
 
-def _zero_noise(frame_indices, height, width, seed, device):
+def _zero_noise(frame_indices, height, width, seed, device, row_start=0):
     batch = len(torch.as_tensor(frame_indices).reshape(-1))
     return torch.zeros((batch, height, width, 3), device=device)
 

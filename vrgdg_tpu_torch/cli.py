@@ -7,7 +7,9 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
   lut      — 3D .cube LUT on a video or image
   grain    — seeded film grain on a video
   adjust   — 13-slider adjust stack on a video or image
-  enhance  — the Standalone Video Enhancer job (segmented, resumable)
+  enhance  — the Standalone Video Enhancer job (segmented, resumable);
+             ``--shard-index``/``--shard-count`` render a share of its
+             segments into a job folder shared by several processes
   face-fix — the distant-face repair job engine (estimate, prepare,
              accept-crop, accept-anchor, inputs, accept-ltx, finalize;
              finalize composites on the device)
@@ -63,11 +65,22 @@ def _add_video_common(p):
 
 def _enhance(args, device) -> None:
     """Start (or resume) an enhancer job, poll it to its end, print its
-    final status; exit 1 unless it completed."""
+    final status; exit 1 unless it completed.  With ``--shard-index``,
+    render this rank's segments of the shared job and print its summary
+    (rank 0: the finished job's status)."""
+    if args.distributed:
+        from .parallel import initialize_distributed
+        initialize_distributed()
     from .jobs import enhancer as enh
 
     payload = {"source_path": args.input,
                "settings": json.loads(args.settings)}
+    if args.shard_index is not None:
+        _print(enh.render_job_shards(
+            args.job_id, payload, args.shard_index, args.shard_count,
+            base_folder=args.output_root,
+            wait_timeout=args.shard_stall_timeout, device=device))
+        return
     snap = enh.start_render(payload, args.resume,
                             base_folder=args.output_root, device=device)
     job_id = snap["job_id"]
@@ -182,6 +195,22 @@ def main(argv=None):
     p.add_argument("--settings", default="{}", help="JSON enhancer settings")
     p.add_argument("--resume", default="", help="job id to resume")
     p.add_argument("--output-root", default=None)
+    p.add_argument("--distributed", action="store_true",
+                   help="initialize torch.distributed first (see "
+                        "vrgdg_tpu_torch.parallel.distributed for the env "
+                        "contract)")
+    p.add_argument("--shard-index", type=int, default=None,
+                   help="segment-scheduler rank: render segments "
+                        "shard_index::shard_count into the shared job "
+                        "folder; rank 0 finalizes (run one process per "
+                        "rank with identical settings)")
+    p.add_argument("--shard-count", type=int, default=1)
+    p.add_argument("--job-id", default="shards",
+                   help="shared job id for --shard-index runs")
+    p.add_argument("--shard-stall-timeout", type=float, default=900.0,
+                   help="rank 0 aborts if no new segment commits for "
+                        "this many seconds (progress restarts the "
+                        "clock; re-run to resume)")
     _add_device(p)
 
     p = sub.add_parser("face-fix", help="distant-face repair job engine")

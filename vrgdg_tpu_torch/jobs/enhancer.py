@@ -1,5 +1,5 @@
 """The Standalone Video Enhancer: a background-threaded, segment-checkpointed,
-resumable render engine over torch on one device.
+resumable render engine over torch on one device or a mesh of them.
 
 Counterpart of :mod:`vrgdg_tpu.jobs.enhancer`, with the same semantics:
 
@@ -28,8 +28,17 @@ flight.  An out-of-memory error surfaces when torch allocates, that is
 when a batch is submitted; both the submit and the force branch bisect
 the batch and keep frame order.
 
-Not here: the multi-card enhancer (:func:`mesh_for_settings` refuses it,
-``render_job_shards``) and the XLA compile cache.
+On more than one card (:func:`mesh_for_settings`) a batch is padded to
+the mesh's data axis on the host while still uint8, each data row's block
+of frames is uploaded to its card and stepped with its own absolute
+``frame_start``, and the results come back in order: bit-identical to one
+card.  With a space axis, each frame is also split by height over the
+row's cards when its height divides the axis (the JAX package's rule):
+lanczos4 reads the source rows in the support of a shard's output rows as
+its halo, the unsharp exchanges one row, and ``film_grain`` draws the
+shard's rows of the whole frame's grain; that matches one card within
+1e-5.  :func:`render_job_shards` spreads a job's segments over processes
+that share a job folder.  Not here: the XLA compile cache.
 """
 
 from __future__ import annotations
@@ -49,8 +58,11 @@ import torch
 from ..api.appliers import resolve_device
 from ..core.params import EnhancerSettings, auto_batch_size, output_dimensions
 from ..kernels.grain_cuda import film_grain_kernel
-from ..ops.resize import resample
+from ..ops.resize import lanczos_support, resample, resample_rows
 from ..ops.sharpen import unsharp
+from ..parallel.distributed import local_devices
+from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, make_mesh, pad_to_multiple
+from ..parallel.spatial import HeightShards, place, row_starts
 from ..runtime import video_io
 from ..runtime.profiling import StageTimer
 from . import manifest as mf
@@ -61,6 +73,12 @@ _DEFAULT_ROOT = os.environ.get(
 
 def root_folder(base: str | None = None) -> str:
     path = os.path.join(base or _DEFAULT_ROOT, "VRGDG_VideoEnhancer")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def upload_folder(base: str | None = None) -> str:
+    path = os.path.join(root_folder(base), "uploads")
     os.makedirs(path, exist_ok=True)
     return path
 
@@ -100,34 +118,66 @@ def _enhance_step(frames: torch.Tensor, settings: EnhancerSettings,
     return out
 
 
-def mesh_for_settings(settings: EnhancerSettings, device="cuda"):
-    """``None`` (one device) when the settings ask for at most one of the
-    visible cards, as the JAX version returns ``None`` on one chip.
+def _enhance_rows(shards: HeightShards, settings: EnhancerSettings,
+                  out_height: int, out_width: int,
+                  frame_start: int) -> HeightShards:
+    """:func:`_enhance_step` over height shards of the source frames: each
+    shard resamples its share of the output rows from the source rows in
+    their lanczos4 support, then unsharp (one halo row) and grain (the
+    shard's rows of the whole frame's grain)."""
+    src_h, space = shards.height, len(shards.tiles)
+    starts = row_starts(int(out_height), space)
+    tiles = []
+    for index, (start, stop) in enumerate(zip(starts, starts[1:])):
+        lo, hi = lanczos_support(src_h, out_height, start, stop)
+        window = shards.window(index, lo, hi)
+        tiles.append(torch.clamp(resample_rows(
+            window, src_h, lo, start, stop, out_height, out_width), 0.0, 1.0))
+    out = HeightShards(tiles, starts)
+    if settings.sharpen_enabled and settings.sharpen_strength > 0:
+        border = "zero" if settings.use_accelerator else "edge"
+        out = out.stencil(1, lambda x, rows: unsharp(
+            x, settings.sharpen_strength, border, rows=rows))
+    if settings.grain_enabled and settings.grain_intensity > 0:
+        out = out.map(lambda tile, rows: film_grain_kernel(
+            tile.contiguous(), settings.grain_intensity,
+            settings.saturation_mix, settings.seed, frame_start=frame_start,
+            row_start=rows.start, frame_height=rows.height))
+    return out
 
-    The frame-axis mesh the JAX version builds for more chips is not
-    ported: asking for more than one visible card raises
-    ``NotImplementedError`` rather than running on one card."""
+
+def mesh_for_settings(settings: EnhancerSettings, device="cuda"):
+    """Build the mesh the job will run on, or ``None`` for one device.
+
+    ``data_parallel`` cards (0: every card this process owns, counted by
+    :func:`~vrgdg_tpu_torch.parallel.distributed.local_devices`: the
+    visible cards or ``VRGDG_TPU_LOCAL_DEVICE_IDS``) times
+    ``spatial_parallel``, as many as there are; ``None`` when that leaves
+    one card, on the CPU, and for a ``device`` that names one card
+    (``cuda:N``).  Every op in the enhance step is frame-local and grain
+    is per-frame seeded, so frame-axis sharding is bit-identical to one
+    card."""
     want = int(getattr(settings, "data_parallel", 0))
     spatial = max(1, int(getattr(settings, "spatial_parallel", 1)))
     if want == 1 and spatial == 1:
         return None
     device = torch.device(device)
-    n_visible = torch.cuda.device_count() if device.type == "cuda" else 1
-    n_use = n_visible if want == 0 else min(want * spatial, n_visible)
+    if device.type != "cuda" or device.index is not None:
+        return None
+    cards = local_devices()
+    n_use = len(cards) if want == 0 else min(want * spatial, len(cards))
     n_use = (n_use // spatial) * spatial
     if n_use <= 1:
         return None
-    raise NotImplementedError(
-        f"data_parallel={want}, spatial_parallel={spatial} asks for {n_use} "
-        f"of the {n_visible} visible cards; the multi-card enhancer is not "
-        "ported yet (ROADMAP.md queue 1, item \"Parallel\"). Set "
-        "data_parallel to 1 to render on one card.")
+    return make_mesh(n_use, spatial=spatial, devices=cards,
+                     span_processes=False)
 
 
 class PendingBatch:
-    """A submitted batch: its result on the host once ``events[1]`` (CUDA)
-    has passed, the count of frames submitted, and the CUDA events around
-    its upload .. download (``None`` on the CPU)."""
+    """A submitted batch: its result on the host once every CUDA event in
+    ``events`` has passed, the count of frames submitted, and one pair of
+    CUDA events per card around its upload .. download (``None`` on the
+    CPU)."""
 
     def __init__(self, host: torch.Tensor, count: int, events=None):
         self.host = host
@@ -135,32 +185,83 @@ class PendingBatch:
         self.events = events
 
     def result(self) -> np.ndarray:
-        if self.events is not None:
-            self.events[1].synchronize()
+        for _, end in self.events or ():
+            end.synchronize()
         return self.host.numpy()[:self.count]
 
     def device_ms(self) -> float:
         """CUDA-event ms from upload to the end of download (after
-        :meth:`result`); 0.0 on the CPU."""
-        if self.events is None:
-            return 0.0
-        return self.events[0].elapsed_time(self.events[1])
+        :meth:`result`), the longest of the cards'; 0.0 on the CPU."""
+        return max((start.elapsed_time(end)
+                    for start, end in self.events or ()), default=0.0)
+
+
+def _submit_on_mesh(host: torch.Tensor, count: int, step, spatial_step,
+                    mesh) -> PendingBatch:
+    """Pad ``host`` (uint8 or float32 BHWC) to the mesh's data axis, run
+    ``step`` (or ``spatial_step`` on height shards) on each data row's
+    block with its absolute first frame, and queue the results' downloads
+    in order."""
+    data, space = mesh.shape[DATA_AXIS], mesh.shape[SPACE_AXIS]
+    host, _ = pad_to_multiple(host, data)
+    per = host.shape[0] // data
+    # the JAX package's rule: split the height only where it divides
+    spatial = space > 1 and host.shape[1] % space == 0
+    cuda = mesh.lead.type == "cuda"
+    if cuda:
+        host = torch.empty(host.shape, dtype=host.dtype,
+                           pin_memory=True).copy_(host)
+    events: dict = {}
+
+    def mark(device) -> None:
+        if device.type == "cuda" and device not in events:
+            with torch.cuda.device(device):
+                events[device] = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                events[device][0].record()
+
+    host_out = None
+    for row_index, row in enumerate(mesh.devices):
+        for device in (row if spatial else row[:1]):
+            mark(device)
+        block = host[row_index * per:(row_index + 1) * per]
+        start = row_index * per
+        if spatial:
+            out = spatial_step(HeightShards.split(block, row),
+                               start).gather(row[0])
+        else:
+            out = step(place(block, row[0]), start)
+        if host_out is None:
+            host_out = torch.empty((host.shape[0], *out.shape[1:]),
+                                   dtype=out.dtype, pin_memory=cuda)
+        host_out[row_index * per:(row_index + 1) * per].copy_(
+            out, non_blocking=cuda)
+    for device, (_, end) in events.items():
+        with torch.cuda.device(device):
+            end.record()
+    return PendingBatch(host_out, count, list(events.values()) or None)
 
 
 def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                          out_height: int | None = None,
                          out_width: int | None = None,
-                         frame_start: int = 0, *, device="cuda",
+                         frame_start: int = 0, *, device="cuda", mesh=None,
                          as_uint8: bool = False) -> PendingBatch:
-    """Queue the device step on ``device`` WITHOUT waiting for it.
+    """Queue the device step on ``device`` (or over ``mesh``) WITHOUT
+    waiting for it.
 
     ``frames`` is a BHWC uint8 (or float32 [0,1]) host batch.  On CUDA it
     is copied into a pinned buffer, uploaded, dequantized, enhanced,
     quantized when ``as_uint8`` (4x less to download; bit-identical to
     quantizing on the host) and downloaded into a pinned buffer, all
     queued on the current stream; :meth:`PendingBatch.result` waits for
-    it.  On the CPU the step runs at once."""
-    device = resolve_device(device)
+    it.  On the CPU the step runs at once.
+
+    With ``mesh`` the batch is padded to divide over the mesh's data axis
+    (repeating the last frame, on the host, still uint8; the padding is
+    trimmed after), each data row's block goes to its card and runs with
+    ``frame_start`` advanced to its first frame, and the results come back
+    in order (``device`` is then unused)."""
     if out_height is None:
         out_height = int(frames.shape[1])
     if out_width is None:
@@ -168,12 +269,25 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
     count = int(frames.shape[0])
     host = torch.from_numpy(np.ascontiguousarray(frames))
 
-    def step(on_device: torch.Tensor) -> torch.Tensor:
-        out = _enhance_step(video_io.dequantize_on_device(on_device),
-                            settings, int(out_height), int(out_width),
-                            int(frame_start))
+    def finish(out: torch.Tensor) -> torch.Tensor:
         return video_io.quantize_on_device(out) if as_uint8 else out
 
+    def step(on_device: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        out = _enhance_step(video_io.dequantize_on_device(on_device),
+                            settings, int(out_height), int(out_width),
+                            int(frame_start) + offset)
+        return finish(out)
+
+    def spatial_step(shards: HeightShards, offset: int) -> HeightShards:
+        shards = shards.map(
+            lambda tile, rows: video_io.dequantize_on_device(tile))
+        out = _enhance_rows(shards, settings, int(out_height),
+                            int(out_width), int(frame_start) + offset)
+        return out.map(lambda tile, rows: finish(tile))
+
+    if mesh is not None:
+        return _submit_on_mesh(host, count, step, spatial_step, mesh)
+    device = resolve_device(device)
     if device.type != "cuda":
         return PendingBatch(step(host.to(device)).cpu(), count)
     with torch.cuda.device(device):
@@ -186,18 +300,18 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
         host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host_out.copy_(out, non_blocking=True)
         end.record()
-    return PendingBatch(host_out, count, (start, end))
+    return PendingBatch(host_out, count, [(start, end)])
 
 
 def apply_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                         out_height: int | None = None,
                         out_width: int | None = None,
-                        frame_start: int = 0, *, device="cuda",
+                        frame_start: int = 0, *, device="cuda", mesh=None,
                         as_uint8: bool = False) -> np.ndarray:
     """Host wrapper: BHWC host batch in, enhanced BHWC host batch out
     (synchronous; see :func:`submit_effects_batch`)."""
     return submit_effects_batch(frames, settings, out_height, out_width,
-                                frame_start, device=device,
+                                frame_start, device=device, mesh=mesh,
                                 as_uint8=as_uint8).result()
 
 
@@ -208,14 +322,14 @@ def _is_oom(exc: BaseException) -> bool:
 
 def process_with_retry(frames: np.ndarray, settings: EnhancerSettings,
                        out_height: int, out_width: int,
-                       frame_start: int, *, device="cuda",
+                       frame_start: int, *, device="cuda", mesh=None,
                        as_uint8: bool = False) -> tuple[np.ndarray, int]:
     """Bisect the batch on device OOM, like the reference's CUDA retry
     (``VRGDG_StandaloneVideoEnhancerNodes.py:297-308``); returns
     ``(frames, smallest_successful_batch)``."""
     try:
         out = apply_effects_batch(frames, settings, out_height, out_width,
-                                  frame_start, device=device,
+                                  frame_start, device=device, mesh=mesh,
                                   as_uint8=as_uint8)
         return out, len(frames)
     except RuntimeError as exc:
@@ -224,11 +338,13 @@ def process_with_retry(frames: np.ndarray, settings: EnhancerSettings,
         midpoint = max(1, len(frames) // 2)
         left, left_n = process_with_retry(frames[:midpoint], settings,
                                           out_height, out_width, frame_start,
-                                          device=device, as_uint8=as_uint8)
+                                          device=device, mesh=mesh,
+                                          as_uint8=as_uint8)
         right, right_n = process_with_retry(frames[midpoint:], settings,
                                             out_height, out_width,
                                             frame_start + midpoint,
-                                            device=device, as_uint8=as_uint8)
+                                            device=device, mesh=mesh,
+                                            as_uint8=as_uint8)
         return np.concatenate([left, right], axis=0), min(left_n, right_n)
 
 
@@ -293,7 +409,7 @@ JOBS = JobRegistry()
 # --------------------------------------------------------------------------
 
 def _force_entry(in_flight: deque, settings, out_h: int, out_w: int, device,
-                 smallest_batch: int, timer, write, stats) -> int:
+                 mesh, smallest_batch: int, timer, write, stats) -> int:
     """Wait for the oldest in-flight batch and encode it.
 
     A device OOM that surfaces here is handled like one at submit time:
@@ -309,7 +425,7 @@ def _force_entry(in_flight: deque, settings, out_h: int, out_w: int, device,
                 raise
             enhanced, ok_batch = process_with_retry(
                 padded, settings, out_h, out_w, start, device=device,
-                as_uint8=True)
+                mesh=mesh, as_uint8=True)
     stats["batches"] += 1
     with timer.stage("encode"):
         write(enhanced[:chunk_n])
@@ -318,7 +434,7 @@ def _force_entry(in_flight: deque, settings, out_h: int, out_w: int, device,
 
 def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
                     settings: EnhancerSettings, out_h: int, out_w: int, *,
-                    device, batch_size: int,
+                    device, batch_size: int, mesh=None,
                     write: Callable[[np.ndarray], object],
                     timer: StageTimer | None = None,
                     cancel_event: threading.Event | None = None,
@@ -338,7 +454,8 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
     one before; order and bytes are unchanged.  On an OOM at submit, the
     older chunks in flight are written first, then this one is bisected.
 
-    ``on_batch(count, frames_done, smallest_batch)`` runs after each
+    ``mesh`` (from :func:`mesh_for_settings`) spreads each batch over its
+    cards.  ``on_batch(count, frames_done, smallest_batch)`` runs after each
     decoded batch is submitted; ``stats`` (optional) receives ``batches``
     and ``device_ms`` (CUDA-event time, upload to download, summed)."""
     timer = timer or StageTimer()
@@ -352,8 +469,8 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
     def force() -> None:
         nonlocal smallest_batch
         smallest_batch = _force_entry(in_flight, settings, out_h, out_w,
-                                      device, smallest_batch, timer, write,
-                                      stats)
+                                      device, mesh, smallest_batch, timer,
+                                      write, stats)
 
     iterator = iter(batches)
     while True:
@@ -379,7 +496,7 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
                 try:
                     pending = submit_effects_batch(
                         padded, settings, out_h, out_w, frame_index + offset,
-                        device=device, as_uint8=True)
+                        device=device, mesh=mesh, as_uint8=True)
                     in_flight.append((pending, padded, chunk_n,
                                       frame_index + offset))
                 except RuntimeError as exc:
@@ -394,7 +511,7 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
                 with timer.stage("device"):
                     enhanced, ok_batch = process_with_retry(
                         padded, settings, out_h, out_w, frame_index + offset,
-                        device=device, as_uint8=True)
+                        device=device, mesh=mesh, as_uint8=True)
                 smallest_batch = max(1, min(smallest_batch, ok_batch))
                 stats["batches"] += 1
                 with timer.stage("encode"):
@@ -416,11 +533,15 @@ def _render_segment(source_path: str, segment_path: str, start_frame: int,
                     end_frame: int, metadata: dict,
                     settings: EnhancerSettings, job_id: str,
                     cancel_event: threading.Event,
-                    registry: JobRegistry,
-                    device="cuda") -> tuple[int, int, dict]:
+                    registry: JobRegistry, device="cuda",
+                    mesh=None) -> tuple[int, int, dict]:
     out_w, out_h = output_dimensions(metadata["width"], metadata["height"],
                                      settings.upscale_resolution)
     batch = settings.batch_size or auto_batch_size(out_w, out_h)
+    n_chips = 1 if mesh is None else mesh.size
+    if mesh is not None:
+        # Keep whole device-batches busy: at least one frame per card.
+        batch = max(batch, n_chips)
     started = time.time()
     timer = StageTimer()
 
@@ -434,8 +555,8 @@ def _render_segment(source_path: str, segment_path: str, start_frame: int,
             frames_processed=current,
             progress=min(0.94, current / total * 0.94),
             batch_size=smallest_batch,
-            mesh_devices=1,
-            fps_per_chip=round(frames_done / elapsed, 3),
+            mesh_devices=n_chips,
+            fps_per_chip=round(frames_done / elapsed / n_chips, 3),
             stage_seconds=timer.seconds(),
             message=(f"Upscaling and enhancing frames "
                      f"{current:,}/{total:,}"),
@@ -460,8 +581,8 @@ def _render_segment(source_path: str, segment_path: str, start_frame: int,
         with video_io.PrefetchingReader(reader) as prefetch:
             frames_done, smallest_batch = enhance_batches(
                 prefetch, settings, out_h, out_w, device=device,
-                batch_size=batch, write=writer.write_array, timer=timer,
-                cancel_event=cancel_event, on_batch=progress)
+                batch_size=batch, mesh=mesh, write=writer.write_array,
+                timer=timer, cancel_event=cancel_event, on_batch=progress)
         if frames_done <= 0:
             raise RuntimeError(
                 "The source video ended before this segment could be rendered.")
@@ -496,7 +617,7 @@ def render_job(job_id: str, payload: dict, resume: bool = False,
                 "The source video or enhancement settings changed, so this "
                 "job cannot resume.")
 
-        mesh_for_settings(settings, device)
+        mesh = mesh_for_settings(settings, device)
         frames_per_segment = max(1, int(round(
             float(metadata["fps"]) * settings.segment_seconds)))
         total_segments = max(1, int(math.ceil(
@@ -553,7 +674,7 @@ def render_job(job_id: str, payload: dict, resume: bool = False,
                          f"{total_segments}"))
             frames_done, _, segment_stages = _render_segment(
                 source_path, partial_path, start, end, metadata, settings,
-                job_id, cancel_event, registry, device=device)
+                job_id, cancel_event, registry, device=device, mesh=mesh)
             os.replace(partial_path, segment_path)
             completed.add(segment_index)
             manifest["completed_segments"] = sorted(completed)
@@ -607,6 +728,159 @@ def render_job(job_id: str, payload: dict, resume: bool = False,
         registry.update(job_id, status="failed", stage="failed",
                         can_resume=True, error=str(exc),
                         message=f"Render failed: {exc}")
+
+
+def render_job_shards(job_id: str, payload: dict, process_index: int,
+                      process_count: int, registry: JobRegistry = JOBS,
+                      base_folder: str | None = None,
+                      wait_timeout: float = 900.0, device="cuda") -> dict:
+    """Distributed segment scheduler: shard *segments across processes*.
+
+    Every participating process computes the same segment plan from the
+    shared payload; rank ``i`` renders segments ``i::process_count`` into
+    the SHARED job folder with the same ``.partial.mp4`` -> ``os.replace``
+    commit protocol as :func:`render_job` (its partial files carry the
+    rank: ``.rank{i}.partial.mp4``), and rank 0, whose scan of committed
+    files is the completion barrier, concatenates and finalizes once every
+    segment file exists.  Within each rank's device step the frame axis
+    may additionally be mesh-sharded (:func:`mesh_for_settings`), so the
+    two sharding levels compose.
+
+    Coordination is entirely filesystem-based (atomic renames in one
+    shared folder): segments are independent and grain is seeded per
+    absolute frame, so the output bytes do not depend on which process
+    rendered which segment.  Resume works per rank by skipping committed
+    files; a dead worker surfaces as rank 0's stall timeout with the
+    missing segment list, and a job folder rendered under other settings
+    is refused.  Rank 0 alone writes the manifest.
+
+    Returns the final snapshot (rank 0) or a per-rank summary.
+    """
+    if process_count < 1 or not 0 <= process_index < process_count:
+        raise ValueError("process_index/process_count are inconsistent.")
+    device = resolve_device(device)
+    cancel_event = registry.cancel_event(job_id)
+    job_folder = os.path.join(jobs_folder(base_folder), job_id)
+    segments_folder = os.path.join(job_folder, "segments")
+    os.makedirs(segments_folder, exist_ok=True)
+
+    source_path = video_io.normalize_video_path(payload.get("source_path"))
+    metadata = video_io.probe_video(source_path)
+    settings = EnhancerSettings.normalize(payload.get("settings"))
+    out_w, out_h = output_dimensions(metadata["width"], metadata["height"],
+                                     settings.upscale_resolution)
+    fingerprint = mf.settings_fingerprint(source_path, settings.to_dict(),
+                                          metadata["frame_count"])
+    mesh = mesh_for_settings(settings, device)
+    frames_per_segment = max(1, int(round(
+        float(metadata["fps"]) * settings.segment_seconds)))
+    total_segments = max(1, int(math.ceil(
+        metadata["frame_count"] / frames_per_segment)))
+
+    # Resume guard (same contract as render_job): a shared job folder
+    # holding segments rendered under a DIFFERENT source/settings must
+    # refuse, not silently mix old and new segments into one output.
+    existing = mf.read_manifest(job_folder)
+    if existing and existing.get("fingerprint") not in (None, fingerprint):
+        raise ValueError(
+            "The source video or enhancement settings changed, so this "
+            "distributed job cannot resume; use a fresh job id.")
+
+    if process_index == 0:
+        # One manifest writer (rank 0) avoids read-modify-write races;
+        # completion truth is the committed segment files themselves.
+        mf.write_manifest(job_folder, {
+            "version": 1, "job_id": job_id, "fingerprint": fingerprint,
+            "source_path": source_path, "settings": settings.to_dict(),
+            "metadata": metadata, "process_count": process_count,
+            "total_segments": total_segments, "completed_segments": [],
+        })
+
+    def _committed(index: int) -> str:
+        return os.path.join(segments_folder, mf.segment_file_name(index))
+
+    mine = list(range(process_index, total_segments, process_count))
+    rendered = []
+    registry.update(job_id, status="running", stage="enhancing",
+                    process_index=process_index,
+                    process_count=process_count,
+                    total_segments=total_segments,
+                    segments_assigned=len(mine), device=str(device))
+    for segment_index in mine:
+        if cancel_event.is_set():
+            raise InterruptedError("Render canceled.")
+        segment_path = _committed(segment_index)
+        if os.path.isfile(segment_path):
+            continue  # resume: another run already committed it
+        start = segment_index * frames_per_segment
+        end = min(metadata["frame_count"], start + frames_per_segment)
+        partial_path = (segment_path
+                        + f".rank{process_index}.partial.mp4")
+        if os.path.isfile(partial_path):
+            os.remove(partial_path)
+        _render_segment(source_path, partial_path, start, end, metadata,
+                        settings, job_id, cancel_event, registry,
+                        device=device, mesh=mesh)
+        os.replace(partial_path, segment_path)
+        rendered.append(segment_index)
+
+    if process_index != 0:
+        registry.update(job_id, status="complete", stage="complete",
+                        message=f"rank {process_index} rendered "
+                                f"{len(rendered)} segment(s)")
+        return {"job_id": job_id, "process_index": process_index,
+                "segments_rendered": rendered}
+
+    # Rank 0: completion barrier = every segment file committed on disk.
+    # ``wait_timeout`` is a STALL timeout, not a whole-job deadline: the
+    # clock restarts every time another segment commits, so an
+    # arbitrarily long job survives as long as workers keep making
+    # progress and only a genuinely dead/stuck worker trips it.
+    stall_started = time.time()
+    missing_before = None
+    while True:
+        missing = [i for i in range(total_segments)
+                   if not os.path.isfile(_committed(i))]
+        if not missing:
+            break
+        if cancel_event.is_set():
+            raise InterruptedError("Render canceled.")
+        if missing_before is None or len(missing) < missing_before:
+            missing_before = len(missing)
+            stall_started = time.time()
+        if time.time() - stall_started > float(wait_timeout):
+            raise TimeoutError(
+                f"Distributed render stalled for {wait_timeout:.0f}s "
+                f"waiting for segments "
+                f"{missing[:8]}{'...' if len(missing) > 8 else ''} — a "
+                "worker process likely died; re-run to resume.")
+        time.sleep(0.2)
+
+    stem = os.path.splitext(settings.output_name)[0] or "enhanced_video"
+    output_name = f"{stem}_{time.strftime('%Y%m%d_%H%M%S')}.mp4"
+    output_path = os.path.join(root_folder(base_folder), output_name)
+    concat_result = video_io.concat_videos(
+        [_committed(i) for i in range(total_segments)], output_path,
+        metadata["fps"], out_w, out_h, source_audio_path=source_path,
+        preserve_audio=settings.preserve_audio, crf=settings.encode_crf,
+        preset=settings.encode_preset, cancel_event=cancel_event,
+        log_path=os.path.join(job_folder, "ffmpeg.log"))
+    output_metadata = video_io.probe_video(output_path)
+    mf.write_manifest(job_folder, {
+        "version": 1, "job_id": job_id, "fingerprint": fingerprint,
+        "source_path": source_path, "settings": settings.to_dict(),
+        "metadata": metadata, "process_count": process_count,
+        "total_segments": total_segments, "completed_segments": [],
+        "output_path": output_path, "status": "complete",
+        "checkpoints_cleaned": True,
+    })
+    shutil.rmtree(segments_folder, ignore_errors=True)
+    registry.update(job_id, status="complete", stage="complete",
+                    progress=1.0, output_path=output_path,
+                    output_metadata=output_metadata,
+                    encode_backend=concat_result["backend"],
+                    audio_preserved=concat_result["audio"])
+    return registry.snapshot(job_id)
 
 
 def start_render(payload: dict, resume_job_id: str = "",

@@ -149,8 +149,8 @@ def _bind(stem: str, lib: ctypes.CDLL) -> None:
             "vrgdg_phase1_block_size": [],
         },
         "grain": {
-            "vrgdg_film_grain": [i32, ptr, i32, i32, i32, i32, f32, f32, f32,
-                                 u32, ptr, ptr],
+            "vrgdg_film_grain": [i32, ptr, i32, i32, i32, i32, i32, i32, f32,
+                                 f32, f32, u32, ptr, ptr],
         },
         "probe": {
             "vrgdg_weighted_row_sum": [i32, ptr, i64, ptr, ptr],

@@ -15,7 +15,9 @@ order on clamped [0,1] BHWC frames:
 9. radial vignette ``1 - clamp((d - 0.35)/1.05) * v * 0.75``.
 
 Each slider runs only when it is non-zero (fade and vignette only when
-positive), exactly as in the JAX code.
+positive), exactly as in the JAX code.  :func:`adjust_stages` gives the
+stack as stages with the halo rows each reads, for height-sharded frames
+(:mod:`vrgdg_tpu_torch.parallel.spatial`).
 """
 
 from __future__ import annotations
@@ -24,26 +26,26 @@ import torch
 
 from ..core.colorspace import rec709_luma
 from ..core.params import AdjustSettings
+from .halo import RowWindow, pad_index
 
 
 def _pad_index(size: int, pad: int, mode: str, device) -> torch.Tensor:
     """Source indices of a 1-D pad: "reflect" (numpy/torch reflect, the
     edge sample not repeated) or "edge" (replicate)."""
-    index = torch.arange(-pad, size + pad, device=device)
-    if mode == "reflect":
-        index = index.abs()
-        return torch.where(index >= size, 2 * (size - 1) - index, index)
-    return index.clamp(0, size - 1)
+    return pad_index(-pad, size + pad, size, mode, device)
 
 
-def _box_blur(frames: torch.Tensor, kernel: int, pad_mode: str) -> torch.Tensor:
+def _box_blur(frames: torch.Tensor, kernel: int, pad_mode: str,
+              rows: RowWindow | None = None) -> torch.Tensor:
     """Separable k x k mean filter, stride 1, with the given pad mode
-    ("reflect" or "edge"), summed in the JAX code's order."""
+    ("reflect" or "edge"), summed in the JAX code's order; over the rows
+    of ``rows`` (the whole frame by default)."""
     pad = kernel // 2
-    h, w = frames.shape[1], frames.shape[2]
-    p = frames.index_select(1, _pad_index(h, pad, pad_mode, frames.device))
-    rows = sum(p[:, i:i + h] for i in range(kernel)) / kernel
-    p = rows.index_select(2, _pad_index(w, pad, pad_mode, frames.device))
+    rows = RowWindow.whole(frames.shape[1]) if rows is None else rows
+    h, w = rows.count, frames.shape[2]
+    p = rows.pad(frames, pad, pad_mode)
+    summed = sum(p[:, i:i + h] for i in range(kernel)) / kernel
+    p = summed.index_select(2, _pad_index(w, pad, pad_mode, frames.device))
     return sum(p[:, :, i:i + w] for i in range(kernel)) / kernel
 
 
@@ -54,13 +56,10 @@ def _clarity_kernel(height: int, width: int, target: int = 9) -> int:
                width if width % 2 else width - 1)
 
 
-def apply_adjust(frames: torch.Tensor, settings: AdjustSettings) -> torch.Tensor:
-    """Apply the full adjust stack to a BHWC [0,1] batch."""
+def _tone(frames: torch.Tensor, s: AdjustSettings) -> torch.Tensor:
+    """Steps 1-5: clamp, temperature/tint, exposure, contrast, saturation,
+    highlights/shadows/whites/blacks; all per pixel."""
     out = torch.clamp(frames, 0.0, 1.0)
-    if not settings.enabled or settings.is_identity:
-        return out
-
-    s = settings
     if s.temperature != 0.0 or s.tint != 0.0:
         offset = torch.tensor(
             [s.temperature / 400.0 - s.tint / 900.0,
@@ -88,29 +87,43 @@ def apply_adjust(frames: torch.Tensor, settings: AdjustSettings) -> torch.Tensor
             out = out + torch.clamp((luma - 0.75) / 0.25, 0.0, 1.0) * (s.whites / 240.0)
         if s.blacks:
             out = out + torch.clamp((0.25 - luma) / 0.25, 0.0, 1.0) * (s.blacks / 240.0)
+    return out
 
-    clarity = s.clarity / 100.0
-    sharpen = s.sharpen / 100.0
-    height, width = int(frames.shape[1]), int(frames.shape[2])
-    if abs(clarity) > 0.001:
-        k = _clarity_kernel(height, width)
-        if k >= 3:
-            detail = out - _box_blur(out, k, "reflect")
-            luma = rec709_luma(out)
-            midtone = 1.0 - torch.clamp(torch.abs(luma - 0.5) / 0.5, 0.0, 1.0)
-            out = out + detail * clarity * 1.55 * (0.35 + midtone * 0.65)
-    if sharpen > 0.001:
-        fine = out - _box_blur(out, 3, "edge")
-        out = out + fine * sharpen * 5.0
 
+def _clarity(frames: torch.Tensor, clarity: float, kernel: int,
+             rows: RowWindow) -> torch.Tensor:
+    """Step 6: reflect-padded box-blur detail * 1.55 * midtone mask."""
+    out = rows.own(frames)
+    detail = out - _box_blur(frames, kernel, "reflect", rows)
+    luma = rec709_luma(out)
+    midtone = 1.0 - torch.clamp(torch.abs(luma - 0.5) / 0.5, 0.0, 1.0)
+    return out + detail * clarity * 1.55 * (0.35 + midtone * 0.65)
+
+
+def _fine_sharpen(frames: torch.Tensor, sharpen: float,
+                  rows: RowWindow) -> torch.Tensor:
+    """Step 7: 3-tap replicate-padded box-blur fine detail * 5.0."""
+    out = rows.own(frames)
+    fine = out - _box_blur(frames, 3, "edge", rows)
+    return out + fine * sharpen * 5.0
+
+
+def _fade_vignette(frames: torch.Tensor, s: AdjustSettings,
+                   rows: RowWindow) -> torch.Tensor:
+    """Steps 8-9 and the final clamp; the vignette's distance is taken
+    from the centre of the whole frame."""
+    out = frames
     fade = s.fade / 100.0
     if fade > 0.0:
         out = out * (1.0 - fade * 0.35) + fade * 0.18
 
     vignette = s.vignette / 100.0
     if vignette > 0.0:
-        yy = torch.linspace(-1.0, 1.0, height, dtype=out.dtype,
-                            device=out.device).reshape(1, height, 1, 1)
+        width = out.shape[2]
+        yy = torch.linspace(-1.0, 1.0, rows.height, dtype=out.dtype,
+                            device=out.device)
+        yy = yy[rows.start:rows.start + rows.count].reshape(1, rows.count,
+                                                            1, 1)
         xx = torch.linspace(-1.0, 1.0, width, dtype=out.dtype,
                             device=out.device).reshape(1, 1, width, 1)
         distance = torch.sqrt(xx * xx + yy * yy)
@@ -118,3 +131,42 @@ def apply_adjust(frames: torch.Tensor, settings: AdjustSettings) -> torch.Tensor
         out = out * mask
 
     return torch.clamp(out, 0.0, 1.0)
+
+
+def adjust_stages(settings: AdjustSettings, height: int, width: int):
+    """The adjust stack as ``(halo, stage)`` pairs, in order, for frames
+    ``height`` x ``width``.
+
+    ``stage(frames, rows)`` returns the rows of ``rows`` (a
+    :class:`~vrgdg_tpu_torch.ops.halo.RowWindow`) from a tensor that holds
+    them plus ``halo`` more rows on each side where the frame has them:
+    the clarity blur reads 4 (the kernel is sized from the whole frame),
+    the sharpen slider 1, the rest 0.  :func:`apply_adjust` runs the stages
+    on whole frames; a height-sharded grade exchanges ``halo`` rows between
+    neighbours before each."""
+    s = settings
+    if not s.enabled or s.is_identity:
+        return [(0, lambda frames, rows: torch.clamp(frames, 0.0, 1.0))]
+    stages = [(0, lambda frames, rows: _tone(frames, s))]
+    clarity = s.clarity / 100.0
+    if abs(clarity) > 0.001:
+        kernel = _clarity_kernel(height, width)
+        if kernel >= 3:
+            stages.append((kernel // 2, lambda frames, rows: _clarity(
+                frames, clarity, kernel, rows)))
+    sharpen = s.sharpen / 100.0
+    if sharpen > 0.001:
+        stages.append((1, lambda frames, rows: _fine_sharpen(
+            frames, sharpen, rows)))
+    stages.append((0, lambda frames, rows: _fade_vignette(frames, s, rows)))
+    return stages
+
+
+def apply_adjust(frames: torch.Tensor, settings: AdjustSettings) -> torch.Tensor:
+    """Apply the full adjust stack to a BHWC [0,1] batch."""
+    height, width = int(frames.shape[1]), int(frames.shape[2])
+    rows = RowWindow.whole(height)
+    out = frames
+    for _, stage in adjust_stages(settings, height, width):
+        out = stage(out, rows)
+    return out

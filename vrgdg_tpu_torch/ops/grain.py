@@ -21,7 +21,10 @@ from Philox4x32-10:
 
 Noise depends only on the seed, the absolute frame index and the pixel,
 so batch boundaries never show: the determinism contract of the reference
-(``vrgdg_tpu/ops/grain.py:8-16``).  The eager and fused paths draw the same
+(``vrgdg_tpu/ops/grain.py:8-16``).  The counter is the pixel's index in
+the whole frame, so a height shard (``row_start``) draws the rows of the
+whole frame's noise that it owns, and height boundaries do not show
+either.  The eager and fused paths draw the same
 numbers, so they agree with grain on.  Against the JAX package the parity
 is distributional: threefry and the TPU's hardware PRNG are other streams.
 
@@ -76,11 +79,13 @@ def _uniform(bits: torch.Tensor) -> torch.Tensor:
 
 
 def grain_noise(frame_indices, height: int, width: int, seed: int,
-                device) -> torch.Tensor:
-    """Unit normal noise ``(B, H, W, 3)`` for absolute frame indices."""
+                device, row_start: int = 0) -> torch.Tensor:
+    """Unit normal noise ``(B, H, W, 3)`` for absolute frame indices: the
+    rows ``[row_start, row_start + height)`` of ``width``-wide frames."""
     index = torch.as_tensor(frame_indices, dtype=torch.int64, device=device)
     keys = ((index + int(seed)) & SEED_MASK).reshape(-1, 1)
-    pixel = torch.arange(height * width, dtype=torch.int64,
+    first = int(row_start) * width
+    pixel = torch.arange(first, first + height * width, dtype=torch.int64,
                          device=device).reshape(1, -1)
     zero = torch.zeros_like(pixel)
     bits = philox4x32_10((pixel, zero, zero, zero), keys)
@@ -94,25 +99,43 @@ def grain_noise(frame_indices, height: int, width: int, seed: int,
 
 
 def grain_field(frame_indices, height: int, width: int, saturation_mix,
-                seed, device) -> torch.Tensor:
-    """Channel-scaled, desaturated unit-intensity grain ``(B, H, W, 3)``."""
-    noise = grain_noise(frame_indices, height, width, seed, device)
+                seed, device, row_start: int = 0) -> torch.Tensor:
+    """Channel-scaled, desaturated unit-intensity grain ``(B, H, W, 3)``
+    (rows from ``row_start`` on, as :func:`grain_noise`)."""
+    noise = grain_noise(frame_indices, height, width, seed, device,
+                        row_start)
     scale = torch.tensor(_CHANNEL_SCALE, dtype=torch.float32, device=device)
     gray = noise[..., 1:2]
     return saturation_mix * (noise * scale) + (1.0 - saturation_mix) * gray
 
 
+def check_rows(row_start: int, height: int, frame_height) -> int:
+    """``frame_height`` (``row_start + height`` when ``None``), after
+    checking that rows ``[row_start, row_start + height)`` lie in it."""
+    row_start = int(row_start)
+    frame_height = row_start + height if frame_height is None \
+        else int(frame_height)
+    if row_start < 0 or row_start + height > frame_height:
+        raise ValueError(f"rows [{row_start}, {row_start + height}) do not "
+                         f"lie in a frame {frame_height} rows tall")
+    return frame_height
+
+
 def film_grain(frames: torch.Tensor, intensity, saturation_mix, seed,
-               frame_start: int = 0) -> torch.Tensor:
+               frame_start: int = 0, row_start: int = 0,
+               frame_height: int | None = None) -> torch.Tensor:
     """Apply seeded film grain to a BHWC [0,1] batch.
 
     ``frame_start`` is the absolute index of ``frames[0]`` within the clip;
     consecutive chunks with matching ``frame_start`` values give the same
-    output as the whole clip at once."""
+    output as the whole clip at once.  Likewise ``frames`` may be the rows
+    ``[row_start, row_start + H)`` of frames ``frame_height`` rows tall (a
+    height shard): it then gets those rows of the whole frames' grain."""
     batch, height, width = frames.shape[0], frames.shape[1], frames.shape[2]
+    check_rows(row_start, height, frame_height)
     indices = int(frame_start) + torch.arange(batch, dtype=torch.int64)
     grain = grain_field(indices, height, width, saturation_mix, seed,
-                        frames.device)
+                        frames.device, row_start)
     if frames.shape[-1] > 3:
         out = frames.clone()
         out[..., :3] = torch.clamp(frames[..., :3] + grain * intensity, 0.0, 1.0)

@@ -211,7 +211,8 @@ def _resample_axis(x: torch.Tensor, axis: int, src: int, dst: int,
 
 
 def _dense_resample(x: torch.Tensor, target_height: int, target_width: int,
-                    method: str) -> torch.Tensor:
+                    method: str, rows: tuple[int, int, int] | None = None
+                    ) -> torch.Tensor:
     """Separable resample as two dense float32 products per frame.
 
     Each product is one 2-D matmul: the height pass multiplies the
@@ -223,10 +224,22 @@ def _dense_resample(x: torch.Tensor, target_height: int, target_width: int,
     product shapes, so the bits of a frame do not depend on how frames are
     batched (a batched product can pick another cuBLAS algorithm for
     another batch count).
+
+    ``rows = (source_height, first, (start, stop))`` computes only output
+    rows ``[start, stop)`` of frames ``source_height`` rows tall, from an
+    ``x`` that holds the source rows from ``first`` on (a height shard and
+    its halo, :func:`lanczos_support`): the height pass multiplies by that
+    block of the matrix.
     """
     src_h, src_w = int(x.shape[1]), int(x.shape[2])
     dst_h, dst_w = int(target_height), int(target_width)
-    wh = _device_matrix(src_h, dst_h, method, x.device)
+    if rows is None:
+        wh = _device_matrix(src_h, dst_h, method, x.device)
+    else:
+        full_h, first, (start, stop) = rows
+        wh = _device_matrix(full_h, dst_h, method, x.device)
+        wh = wh[start:stop, first:first + src_h].contiguous()
+        src_h, dst_h = full_h, stop - start
     ww_t = _device_matrix(src_w, dst_w, method, x.device).t()
 
     def by_height(t: torch.Tensor) -> torch.Tensor:
@@ -238,12 +251,14 @@ def _dense_resample(x: torch.Tensor, target_height: int, target_width: int,
         planes = t.transpose(1, 2).reshape(h * c, w)
         return (planes @ ww_t).reshape(h, c, dst_w).transpose(1, 2)
 
-    # MACs: height-first = dh*sh*sw + dw*sw*dh ; width-first symmetric
-    height_first = dst_h * src_h * src_w + dst_w * src_w * dst_h
-    width_first = dst_w * src_w * src_h + dst_h * src_h * dst_w
+    # MACs of the whole frame: height-first = dh*sh*sw + dw*sw*dh ;
+    # width-first symmetric
+    full_dst_h = int(target_height)
+    height_first = full_dst_h * src_h * src_w + dst_w * src_w * full_dst_h
+    width_first = dst_w * src_w * src_h + full_dst_h * src_h * dst_w
 
     def per_frame(frame: torch.Tensor) -> torch.Tensor:
-        if src_h == dst_h:
+        if src_h == full_dst_h and rows is None:
             return by_width(frame)
         if src_w == dst_w:
             return by_height(frame)
@@ -253,6 +268,37 @@ def _dense_resample(x: torch.Tensor, target_height: int, target_width: int,
 
     with _ieee_fp32_matmul():
         return torch.stack([per_frame(frame) for frame in x])
+
+
+def lanczos_support(source_height: int, target_height: int, start: int,
+                    stop: int) -> tuple[int, int]:
+    """The source rows ``[lo, hi)`` that output rows ``[start, stop)`` of
+    a lanczos4 resample from ``source_height`` to ``target_height`` rows
+    read: the halo a height shard needs."""
+    if int(source_height) == int(target_height):
+        return int(start), int(stop)
+    block = resample_matrix(source_height, target_height, "lanczos4")
+    used = np.nonzero(block[start:stop].any(axis=0))[0]
+    return int(used[0]), int(used[-1]) + 1
+
+
+def resample_rows(frames: torch.Tensor, source_height: int, first: int,
+                  start: int, stop: int, target_height: int,
+                  target_width: int) -> torch.Tensor:
+    """Output rows ``[start, stop)`` of the lanczos4 :func:`resample` of
+    frames ``source_height`` rows tall to ``(target_height,
+    target_width)``, from ``frames``, which holds the source rows from
+    ``first`` on and at least :func:`lanczos_support` of the window.
+    Equal to those rows of the whole resample within float32 rounding
+    (the products sum in another order)."""
+    if int(source_height) == int(target_height):
+        own = frames[:, start - first:stop - first]
+        return resample(own, stop - start, target_width, "lanczos4")
+    x = frames.to(torch.float32)
+    out = _dense_resample(x, target_height, target_width, "lanczos4",
+                          rows=(int(source_height), int(first),
+                                (int(start), int(stop))))
+    return out.to(frames.dtype)
 
 
 def resample(frames: torch.Tensor, target_height: int, target_width: int,
