@@ -103,10 +103,28 @@ Phases, one line each (any failure raises and the exit code is not 0):
     ``enhance --shard-index`` processes sharing the card on a seeded
     120-frame 1080p clip at 12 fps, byte-identical to an in-process
     ``render_job``, with both wall times; and
-    ``vrgdg_tpu_torch.entry.dryrun_multichip(4, [cuda:0] * 4)``.
+    ``vrgdg_tpu_torch.entry.dryrun_multichip(4, [cuda:0] * 4)``;
+17. the server on the card (``vrgdg_tpu_torch.server`` in this process on
+    127.0.0.1, driven by real socket requests, one ``[server]`` line each
+    with its wall ms): health names the card, 18 LUTs, the panel; the
+    fused ``grade_video`` (``fused_mode: "pallas"``, the flagship stack
+    with a seeded reference image) on a 48-frame 1080p clip at batch 8,
+    six launches of each grade kernel and decoded byte for byte as the
+    in-process applier, the ``"xla"`` name launching neither; the LUT
+    route on a 4K PNG, byte for byte as in process; the enhancer's upload,
+    load, preview (one ``film_grain`` launch) and a 1080p -> 4K render of
+    24 frames (one launch a batch) against an in-process ``start_render``,
+    the media route and an unknown job's 404; a second render with the
+    fused grade sent from another request thread while it runs, both
+    outputs as their lone runs; ``compare/video`` side_by_side and
+    ``compare/grid``; ``face_fix/estimate_anchors``; beats, scene SRT,
+    peaks and silent audio on a click track; a cross-origin POST refused;
+    and ``python -m vrgdg_tpu_torch.cli serve`` in a process of its own
+    answering ``/vrgdg/health`` with the card's name.  Any reply other
+    than ``ok: true`` fails it, except the refusals it asks for.
 
-Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, and 16's
-mesh runs) is driven with the launch counts set to 0 just before it and
+Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
+runs, and 17's grade, enhancer and concurrent requests) is driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -178,6 +196,16 @@ PARALLEL_FUSED = (3, 2160, 3840)
 PARALLEL_EAGER = (2, 1080, 1920)
 PARALLEL_ENHANCE = (3, 1080, 1920)
 SCHEDULER_CLIP = (120, 12.0, (1920, 1080))
+# phase 17: the server in this process on 127.0.0.1: grade_video on a
+# 48-frame 1080p clip at 24 fps at batch 8 (6 batches), enhancer renders of
+# a 24-frame 1080p clip to 4K, a 4K PNG, a 4 s click track at 120 bpm
+# written as a 44.1 kHz WAV, and `serve` in a process of its own, which
+# must answer /vrgdg/health within SERVE_START_LIMIT_S
+SERVER_GRADE_CLIP = (48, 24.0, (1920, 1080))
+SERVER_GRADE_BATCH = 8
+SERVER_RENDER_CLIP = (24, 24.0, (1920, 1080))
+SERVER_CLICKS = (4.0, 44100, 120.0)                   # seconds, rate, bpm
+SERVE_START_LIMIT_S = 90.0
 SECONDARY = (1080, 1920)                              # H, W
 LORA = (4096, 4096, 16)
 # kernel vs plain on the card: nvcc contracts a*b+c into FMAs and its
@@ -2350,6 +2378,546 @@ def parallel_phase(device, config, lut, ref_stats, card: str) -> dict:
     return launches
 
 
+class _Server:
+    """Phase 17's app (``vrgdg_tpu_torch.server``, aiohttp) on 127.0.0.1
+    in this process, its event loop on a thread of its own, so
+    ``kernels/build.py``'s launch counts see its requests; :meth:`call`
+    sends one real socket request and prints its line."""
+
+    def __init__(self, device, base: str):
+        import asyncio
+        import threading
+
+        from aiohttp import web
+
+        from vrgdg_tpu_torch import server
+
+        self.loop = asyncio.new_event_loop()
+        self.runner = web.AppRunner(server.create_app(base_folder=base,
+                                                      device=device))
+        self.loop.run_until_complete(self.runner.setup())
+        site = web.TCPSite(self.runner, "127.0.0.1", 0)
+        self.loop.run_until_complete(site.start())
+        port = self.runner.addresses[0][1]
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.url = f"http://127.0.0.1:{port}"
+
+    def call(self, method: str, path: str, json_body=None, params=None,
+             data: bytes | None = None, headers=None, status: int = 200,
+             **fields):
+        """``(status, body, wall ms)``; fails unless the status is
+        ``status`` and a JSON body says ``ok: true`` (``ok: false`` where a
+        refusal is asked for)."""
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        url = self.url + path
+        if params:
+            url += "?" + urllib.parse.urlencode(params)
+        headers = dict(headers or {})
+        if json_body is not None:
+            data = json.dumps(json_body).encode()
+            headers["Content-Type"] = "application/json"
+        request = urllib.request.Request(url, data=data, method=method,
+                                         headers=headers)
+        started = time.perf_counter()
+        try:
+            with urllib.request.urlopen(request, timeout=600) as response:
+                got, raw = response.status, response.read()
+                kind = response.headers.get("Content-Type", "")
+        except urllib.error.HTTPError as exc:
+            got, raw = exc.code, exc.read()
+            kind = exc.headers.get("Content-Type", "")
+        wall_ms = (time.perf_counter() - started) * 1e3
+        body = json.loads(raw) if kind.startswith("application/json") \
+            else raw
+        if got != status or (isinstance(body, dict)
+                             and body.get("ok") is not (status < 400)):
+            raise AssertionError(f"{method} {path}: {got} {str(body)[:2000]}")
+        _say("server", request=f"'{method} {path}'", status=got,
+             wall_ms=f"{wall_ms:.3f}", **fields)
+        return got, body, wall_ms
+
+    def close(self) -> None:
+        import asyncio
+
+        asyncio.run_coroutine_threadsafe(self.runner.cleanup(),
+                                         self.loop).result(timeout=60)
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(timeout=60)
+        self.loop.close()
+
+
+def _multipart(name: str, filename: str, data: bytes) -> tuple[bytes, str]:
+    boundary = "vrgdgsmoke" + "7" * 16
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
+            f'name="{name}"; filename="{filename}"\r\n'
+            "Content-Type: video/mp4\r\n\r\n").encode() + data \
+        + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def _click_track(path: str) -> str:
+    """A seeded stereo click track (decaying noise bursts on the beat) as
+    a 16-bit WAV."""
+    import wave
+
+    seconds, rate, bpm = SERVER_CLICKS
+    rng = np.random.default_rng(1717)
+    n = int(seconds * rate)
+    y = rng.normal(0.0, 0.003, n)
+    burst = np.exp(-np.linspace(0.0, 6.0, int(0.02 * rate)))
+    for start in np.arange(0.0, seconds, 60.0 / bpm):
+        first = int(start * rate)
+        end = min(n, first + burst.size)
+        y[first:end] += 0.9 * burst[:end - first] * rng.normal(
+            0.0, 1.0, end - first)
+    pcm = (np.clip(y, -1, 1) * 32767).round().astype("<i2")
+    with wave.open(path, "wb") as handle:
+        handle.setnchannels(2)
+        handle.setsampwidth(2)
+        handle.setframerate(rate)
+        handle.writeframes(np.repeat(pcm[:, None], 2, axis=1).tobytes())
+    return path
+
+
+def _wait_job(srv: _Server, job_id: str, limit_s: float = 300.0) -> dict:
+    """Poll ``render/status`` (quietly) until the job ends."""
+    import urllib.request
+
+    deadline = time.perf_counter() + limit_s
+    url = f"{srv.url}/vrgdg/video_enhancer/render/status?job_id={job_id}"
+    while time.perf_counter() < deadline:
+        with urllib.request.urlopen(url, timeout=60) as response:
+            job = json.loads(response.read())["job"]
+        if job["status"] in {"complete", "failed", "canceled"}:
+            if job["status"] != "complete":
+                raise AssertionError(f"render {job_id}: {job['status']}: "
+                                     f"{job.get('error')}")
+            return job
+        time.sleep(0.1)
+    raise AssertionError(f"render {job_id} did not end in {limit_s} s")
+
+
+def _same_frames(label: str, a: str, b: str) -> None:
+    if not np.array_equal(_decode(a), _decode(b)):
+        raise AssertionError(f"{label}: outputs differ")
+
+
+def _server_grade(srv, device, folder, clip,
+                  reference) -> tuple[dict, str, dict]:
+    """Phase 17's check 2: the fused ``grade_video`` by request against
+    the in-process applier, then the ``xla`` name, which launches no
+    kernel."""
+    from vrgdg_tpu_torch.api import appliers
+
+    payload = {"input": clip, "lut": FLAGSHIP["lut_name"],
+               "strength": FLAGSHIP["lut_strength"],
+               "adjust": FLAGSHIP["adjust"], "reference_image": reference,
+               "match_strength": FLAGSHIP["match_strength"],
+               "sharpen_strength": FLAGSHIP["sharpen_strength"],
+               "grain_intensity": FLAGSHIP["grain_intensity"],
+               "saturation_mix": FLAGSHIP["saturation_mix"],
+               "seed": FLAGSHIP["seed"], "batch_size": SERVER_GRADE_BATCH,
+               "preserve_audio": False}
+    out = os.path.join(folder, "graded_pallas.mp4")
+    frames = SERVER_GRADE_CLIP[0]
+    batches = -(-frames // SERVER_GRADE_BATCH)
+    (_, body, _), counts = _counted(lambda: srv.call(
+        "POST", "/vrgdg/music_builder/post_process/grade_video",
+        {**payload, "fused_mode": "pallas", "output": out},
+        mode="pallas", frames=frames, batch=SERVER_GRADE_BATCH))
+    result = body["result"]
+    _expect("grade_video pallas", counts,
+            {"grade_phase1": batches, "grade_phase2": batches})
+    lone = appliers.grade_video(
+        clip, os.path.join(folder, "graded_inproc.mp4"),
+        lut_name=FLAGSHIP["lut_name"], lut_strength=FLAGSHIP["lut_strength"],
+        adjust=FLAGSHIP["adjust"], reference_image=reference,
+        match_strength=FLAGSHIP["match_strength"],
+        sharpen_strength=FLAGSHIP["sharpen_strength"],
+        grain_intensity=FLAGSHIP["grain_intensity"],
+        saturation_mix=FLAGSHIP["saturation_mix"], seed=FLAGSHIP["seed"],
+        batch_size=SERVER_GRADE_BATCH, preserve_audio=False,
+        fused_mode="fused", device=device)
+    launches = dict(counts)
+    _same_frames("grade_video by request vs in process", out,
+                 lone["output"])
+    if (result["processed_frames"], result["fused_mode"]) != (frames,
+                                                              "pallas"):
+        raise AssertionError(f"grade_video result: {result}")
+    _say("server-grade", mode="pallas", launches=json.dumps(counts),
+         elapsed_s=f"{result['elapsed_seconds']:.3f}",
+         stage_seconds=json.dumps({k: round(v, 3) for k, v in
+                                   result["stage_seconds"].items()},
+                                  separators=(",", ":")),
+         in_process_elapsed_s=f"{lone['elapsed_seconds']:.3f}",
+         vs_in_process="byte-identical")
+    (_, body, _), counts = _counted(lambda: srv.call(
+        "POST", "/vrgdg/music_builder/post_process/grade_video",
+        {**payload, "fused_mode": "xla",
+         "output": os.path.join(folder, "graded_xla.mp4")}, mode="xla"))
+    _expect("grade_video xla", counts, {})
+    _say("server-grade", mode="xla", launches="{}",
+         elapsed_s=f"{body['result']['elapsed_seconds']:.3f}")
+    return payload, out, launches
+
+
+def _render_batches() -> int:
+    """Batches of phase 17's render: the 24 frames at the auto batch of
+    its 4K output."""
+    from vrgdg_tpu_torch.core.params import auto_batch_size
+
+    return -(-SERVER_RENDER_CLIP[0] // auto_batch_size(*ENHANCE_SIZE))
+
+
+def _server_enhancer(srv, device, folder, clip) -> tuple[dict, dict, dict]:
+    """Phase 17's check 4: upload, load, preview (one ``film_grain``
+    launch), a render by request against an in-process ``start_render``
+    of the same payload (one launch a batch), the media route's
+    containment and an unknown job's 404."""
+    from vrgdg_tpu_torch.jobs import enhancer as enh
+    from vrgdg_tpu_torch.runtime import video_io
+
+    with open(clip, "rb") as handle:
+        data, content_type = _multipart("video", "server clip.mp4",
+                                        handle.read())
+    _, body, _ = srv.call("POST", "/vrgdg/video_enhancer/upload", data=data,
+                          headers={"Content-Type": content_type},
+                          bytes=len(data))
+    uploaded = body["video"]["path"]
+    with open(uploaded, "rb") as a, open(clip, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("the uploaded file differs from the clip")
+    _, body, _ = srv.call("POST", "/vrgdg/video_enhancer/load",
+                          {"path": uploaded})
+    frames, _, (width, height) = SERVER_RENDER_CLIP
+    if (body["video"]["frame_count"], body["video"]["width"]) != (frames,
+                                                                 width):
+        raise AssertionError(f"load: {body['video']}")
+    settings = {**ENHANCE, "preserve_audio": False,
+                "output_name": "served.mp4"}
+    (_, body, _), counts = _counted(lambda: srv.call(
+        "POST", "/vrgdg/video_enhancer/preview",
+        {"source_path": uploaded, "timestamp": 0.5, "settings": settings}))
+    _expect("enhancer preview", counts, {"film_grain": 1})
+    launches = dict(counts)
+    out_w, out_h = ENHANCE_SIZE
+    if (body["output_width"], body["output_height"]) != (out_w, out_h):
+        raise AssertionError(f"preview: {body}")
+    payload = {"source_path": uploaded, "settings": settings}
+    batches = _render_batches()
+
+    def render():
+        _, started, _ = srv.call("POST", "/vrgdg/video_enhancer/render/start",
+                                 payload)
+        return _wait_job(srv, started["job"]["job_id"])
+
+    job, counts = _counted(render)
+    _expect("render by request", counts, {"film_grain": batches})
+    _add(launches, counts)
+    srv.call("GET", "/vrgdg/video_enhancer/render/status",
+             params={"job_id": job["job_id"]}, job_status=job["status"],
+             stage_seconds_total=json.dumps(
+                 {k: round(v, 3) for k, v in
+                  job["stage_seconds_total"].items()},
+                 separators=(",", ":")))
+    registry = enh.JobRegistry()
+    lone = enh.start_render(payload, registry=registry,
+                            base_folder=os.path.join(folder, "inproc"),
+                            device=device)
+    deadline = time.perf_counter() + 600
+    while registry.snapshot(lone["job_id"]).get("status") in {
+            "queued", "running", "encoding"}:
+        if time.perf_counter() > deadline:
+            raise AssertionError("the in-process render did not end")
+        time.sleep(0.1)
+    lone = registry.snapshot(lone["job_id"])
+    if lone.get("status") != "complete":
+        raise AssertionError(f"in-process render: {lone.get('error')}")
+    _same_frames("render by request vs in process", job["output_path"],
+                 lone["output_path"])
+    meta = video_io.probe_video(job["output_path"])
+    if (meta["frame_count"], meta["width"], meta["height"]) != (
+            frames, out_w, out_h):
+        raise AssertionError(f"render output: {meta}")
+    _say("server-render", frames=frames, size=f"{width}x{height}->"
+         f"{out_w}x{out_h}", film_grain_launches=counts.get("film_grain", 0),
+         vs_in_process="byte-identical",
+         stage_seconds_total=json.dumps(
+             {k: round(v, 3) for k, v in job["stage_seconds_total"].items()},
+             separators=(",", ":")))
+    _, served, _ = srv.call("GET", "/vrgdg/video_enhancer/media",
+                            params={"path": job["output_path"]})
+    with open(job["output_path"], "rb") as handle:
+        if served != handle.read():
+            raise AssertionError("the media route served other bytes")
+    srv.call("GET", "/vrgdg/video_enhancer/media",
+             params={"path": "/etc/passwd"}, status=404)
+    srv.call("GET", "/vrgdg/video_enhancer/render/status",
+             params={"job_id": "no_such_job"}, status=404)
+    return payload, job, launches
+
+
+def _server_concurrent(srv, folder, grade, graded, render, rendered) -> dict:
+    """Phase 17's check 5: a second render and, while it runs, the fused
+    ``grade_video`` from another request thread; both outputs against
+    their lone runs."""
+    import threading
+
+    from vrgdg_tpu_torch.kernels import build
+
+    build.reset_launch_counts()
+    _, body, _ = srv.call("POST", "/vrgdg/video_enhancer/render/start",
+                          {**render, "settings": {**render["settings"],
+                                                  "output_name": "again.mp4"}})
+    job_id = body["job"]["job_id"]
+    states = {}
+    out = os.path.join(folder, "graded_concurrent.mp4")
+
+    def grade_request():
+        # send the grade once the render is under way
+        deadline = time.perf_counter() + 60
+        while _job_status(srv, job_id) == "queued" \
+                and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        states["render_before"] = _job_status(srv, job_id)
+        try:
+            srv.call("POST", "/vrgdg/music_builder/post_process/grade_video",
+                     {**grade, "fused_mode": "pallas", "output": out},
+                     mode="pallas", concurrent="with-render")
+        except AssertionError as exc:
+            states["error"] = exc
+        states["render_after"] = _job_status(srv, job_id)
+
+    worker = threading.Thread(target=grade_request)
+    worker.start()
+    worker.join(timeout=600)
+    job = _wait_job(srv, job_id)
+    torch.cuda.synchronize()
+    if "error" in states:
+        raise states["error"]
+    if worker.is_alive() or "render_after" not in states:
+        raise AssertionError("the concurrent grade request did not finish")
+    counts = {k: v for k, v in build.LAUNCHES.items() if v}
+    batches = -(-SERVER_GRADE_CLIP[0] // SERVER_GRADE_BATCH)
+    _expect("render and grade at once", counts,
+            {"grade_phase1": batches, "grade_phase2": batches,
+             "film_grain": _render_batches()})
+    if states["render_before"] == "complete":
+        raise AssertionError("the render ended before the grade started")
+    _same_frames("concurrent grade vs alone", out, graded)
+    _same_frames("concurrent render vs alone", job["output_path"],
+                 rendered["output_path"])
+    _say("server-concurrent", render_at_grade_start=states["render_before"],
+         render_at_grade_end=states["render_after"],
+         launches=json.dumps(counts), outputs="byte-identical")
+    return counts
+
+
+def _job_status(srv, job_id: str) -> str:
+    import urllib.request
+
+    url = f"{srv.url}/vrgdg/video_enhancer/render/status?job_id={job_id}"
+    with urllib.request.urlopen(url, timeout=60) as response:
+        return json.loads(response.read())["job"]["status"]
+
+
+def _serve_command(kind: str) -> None:
+    """Phase 17's check 10: ``python -m vrgdg_tpu_torch.cli serve`` in a
+    process of its own answers ``/vrgdg/health`` with the card's name
+    within SERVE_START_LIMIT_S, then is stopped."""
+    import socket
+    import urllib.request
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    with tempfile.TemporaryDirectory() as folder:
+        started = time.perf_counter()
+        process = subprocess.Popen(
+            [sys.executable, "-m", "vrgdg_tpu_torch.cli", "serve", "--port",
+             str(port)], cwd=os.path.dirname(os.path.abspath(__file__)),
+            env={**os.environ, "VRGDG_TPU_OUTPUT": folder},
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+        try:
+            body = None
+            while time.perf_counter() - started < SERVE_START_LIMIT_S:
+                if process.poll() is not None:
+                    raise AssertionError(
+                        f"serve exited {process.returncode}: "
+                        f"{process.stderr.read().decode()[-2000:]}")
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/vrgdg/health",
+                            timeout=10) as response:
+                        body = json.loads(response.read())
+                    break
+                except OSError:
+                    time.sleep(0.25)
+            answered = time.perf_counter() - started
+            if body is None or not body.get("ok") \
+                    or kind not in body.get("backend", ""):
+                raise AssertionError(f"serve did not answer /vrgdg/health "
+                                     f"with the card in "
+                                     f"{SERVE_START_LIMIT_S} s: {body}")
+        finally:
+            process.terminate()
+            try:
+                process.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                process.kill()
+                process.wait(timeout=30)
+    _say("server-serve", command="'python -m vrgdg_tpu_torch.cli serve'",
+         health_s=f"{answered:.3f}", limit_s=SERVE_START_LIMIT_S,
+         backend=f"'{body['backend']}'", stopped=process.returncode)
+
+
+def server_phase(device, kind: str) -> dict:
+    """Phase 17: the port's HTTP server on the card, driven by requests;
+    returns the launches of its counted runs (the fused grade request, the
+    enhancer preview and render, and the concurrent pair)."""
+    from vrgdg_tpu_torch.api import appliers
+
+    started = time.perf_counter()
+    launches: dict = {}
+    srv = None
+    with tempfile.TemporaryDirectory() as folder:
+        try:
+            srv = _Server(device, os.path.join(folder, "served"))
+            frames, fps, (width, height) = SERVER_GRADE_CLIP
+            grade_clip = _write_clip(os.path.join(folder, "grade.mp4"),
+                                     frames, fps, width, height, 1701)
+            frames, fps, (width, height) = SERVER_RENDER_CLIP
+            render_clip = _write_clip(os.path.join(folder, "render.mp4"),
+                                      frames, fps, width, height, 1702)
+            other_clip = _write_clip(os.path.join(folder, "other.mp4"),
+                                     frames, fps, width, height, 1703)
+            (still_h, still_w), _ = STILL_SIZES
+            still = _still(os.path.join(folder, "still.png"), still_h,
+                           still_w, 1704)
+            reference = _still(os.path.join(folder, "reference.png"), 64, 64,
+                               1705)
+            wav = _click_track(os.path.join(folder, "clicks.wav"))
+
+            # 1: health, catalog, panel
+            _, body, _ = srv.call("GET", "/vrgdg/health")
+            if kind not in body["backend"]:
+                raise AssertionError(f"health backend: {body['backend']}")
+            _, body, _ = srv.call("GET", "/vrgdg/music_builder/luts")
+            if len(body["luts"]) != 18:
+                raise AssertionError(f"{len(body['luts'])} LUTs, not 18")
+            _, page, _ = srv.call("GET", "/vrgdg/ui")
+            if b"/vrgdg/" not in page:
+                raise AssertionError("the panel page is not served")
+            # 2: the fused grade by request
+            grade, graded, counts = _server_grade(srv, device, folder,
+                                                  grade_clip, reference)
+            _add(launches, counts)
+            # 3: a 4K still through the LUT route
+            out = os.path.join(folder, "lut_route.png")
+            _, body, _ = srv.call(
+                "POST", "/vrgdg/music_builder/luts/apply_image",
+                {"input": still, "lut": FLAGSHIP["lut_name"],
+                 "strength": FLAGSHIP["lut_strength"], "output": out})
+            lone = appliers.apply_lut_to_image(
+                still, FLAGSHIP["lut_name"],
+                os.path.join(folder, "lut_inproc.png"),
+                FLAGSHIP["lut_strength"], device=device)
+            with open(out, "rb") as a, open(lone["output"], "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError("apply_image by request differs")
+            _say("server-image", size=f"{still_h}x{still_w}",
+                 elapsed_s=f"{body['result']['elapsed_seconds']:.3f}",
+                 stage_seconds=json.dumps(
+                     {k: round(v, 3) for k, v in
+                      body["result"]["stage_seconds"].items()},
+                     separators=(",", ":")),
+                 vs_in_process="byte-identical")
+            # 4: the enhancer
+            render, rendered, counts = _server_enhancer(srv, device, folder,
+                                                        render_clip)
+            _add(launches, counts)
+            # 5: two request threads on one card
+            _add(launches, _server_concurrent(srv, folder, grade, graded,
+                                              render, rendered))
+            # 6: compare
+            _, body, _ = srv.call(
+                "POST", "/vrgdg/compare/video",
+                {"input_a": render_clip, "input_b": other_clip,
+                 "mode": "side_by_side", "batch_size": 8},
+                mode="side_by_side")
+            result = body["result"]
+            shape = _decode(result["output"]).shape
+            if shape[:3] != (SERVER_RENDER_CLIP[0], height, 2 * width + 2):
+                raise AssertionError(f"compare/video: {shape}")
+            _say("server-compare", mode="side_by_side",
+                 size=f"{shape[1]}x{shape[2]}",
+                 processed_fps=f"{result['processed_fps']:.2f}",
+                 stage_seconds=json.dumps(
+                     {k: round(v, 3) for k, v in
+                      result["stage_seconds"].items()},
+                     separators=(",", ":")))
+            _, body, _ = srv.call(
+                "POST", "/vrgdg/compare/grid",
+                {"paths": [render_clip, other_clip], "labels": ["a", "b"]})
+            grid = body["result"]
+            decoded = _decode(grid["output"])
+            if (grid["frames"], grid["tiles"], decoded.shape[0]) != (
+                    SERVER_RENDER_CLIP[0], 2, SERVER_RENDER_CLIP[0]):
+                raise AssertionError(f"compare/grid: {grid}")
+            # 7: face fix without a detector
+            _, body, _ = srv.call(
+                "POST", "/vrgdg/face_fix/estimate_anchors",
+                {"video_path": grade_clip, "whole_scene": True,
+                 "anchor_interval": 8})
+            if body["frame_count"] != SERVER_GRADE_CLIP[0] \
+                    or not body["anchor_indices"]:
+                raise AssertionError(f"estimate_anchors: {body}")
+            # 8: beats and audio
+            _, body, _ = srv.call("POST",
+                                  "/vrgdg/music_builder/beats/analyze",
+                                  {"mix_path": wav})
+            beat_data = body["result"]
+            if abs(beat_data["bpm"] - SERVER_CLICKS[2]) > 6.0:
+                raise AssertionError(f"beats: {beat_data['bpm']} bpm")
+            _, body, _ = srv.call(
+                "POST", "/vrgdg/music_builder/beats/scene_srt",
+                {"beat_data": beat_data, "min_duration": 1.0,
+                 "max_duration": 2.0, "seed": 3})
+            if "-->" not in body["result"]["srt_text"]:
+                raise AssertionError("scene_srt wrote no scene")
+            _, body, _ = srv.call("POST", "/vrgdg/music_builder/audio/peaks",
+                                  {"path": wav})
+            if len(body["result"]["peaks"]) < 500:
+                raise AssertionError("audio/peaks: too few peaks")
+            _, body, _ = srv.call(
+                "POST", "/vrgdg/music_builder/create_silent_audio",
+                {"project_folder": os.path.join(folder, "project"),
+                 "duration": 2.5})
+            if not os.path.isfile(body["audio_path"]):
+                raise AssertionError("create_silent_audio wrote no file")
+            _say("server-beats", bpm=f"{beat_data['bpm']:.2f}",
+                 beats=len(beat_data["beats"]))
+            # 9: a cross-origin mutation
+            srv.call("POST", "/vrgdg/video_enhancer/load",
+                     {"path": render_clip}, status=403,
+                     headers={"Origin": "http://elsewhere.example"})
+        finally:
+            if srv is not None:
+                srv.close()
+    # 10: the serve command
+    _serve_command(kind)
+    _say("server-kernels", **{name: launches.get(name, 0) for name in
+                              ("grade_phase1", "grade_phase2",
+                               "film_grain")},
+         phase_s=f"{time.perf_counter() - started:.2f}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2415,6 +2983,7 @@ def main() -> int:
     for name, count in parallel_phase(device, config, lut, ref_stats,
                                       card).items():
         launches[name] = launches.get(name, 0) + count
+    _add(launches, server_phase(device, kind))
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

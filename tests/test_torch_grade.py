@@ -272,7 +272,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "vrgdg_tpu_torch.jobs.face_repair, vrgdg_tpu_torch.ops.face, "
             "vrgdg_tpu_torch.ops.paste_back, vrgdg_tpu_torch.ops.schedules, "
             "vrgdg_tpu_torch.ops.reference_images, vrgdg_tpu_torch.ops.grid, "
-            "vrgdg_tpu_torch.ops.image_switch, vrgdg_tpu_torch.ops.lora\n"
+            "vrgdg_tpu_torch.ops.image_switch, vrgdg_tpu_torch.ops.lora, "
+            "vrgdg_tpu_torch.server, vrgdg_tpu_torch.server.routes, "
+            "vrgdg_tpu_torch.release_notes, vrgdg_tpu_torch.runtime.audio, "
+            "vrgdg_tpu_torch.runtime.audio_toolkit, "
+            "vrgdg_tpu_torch.runtime.beats\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'vrgdg_tpu' or "
             "m.startswith('vrgdg_tpu.') or m.split('.')[0] == 'PIL']\n"

@@ -559,6 +559,10 @@ def test_port_sources_import_neither_jax_vrgdg_tpu_nor_pillow():
     files = glob.glob(os.path.join(REPO, "vrgdg_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 30
+    for module in ("server/__init__.py", "server/routes.py",
+                   "release_notes.py", "runtime/audio.py",
+                   "runtime/audio_toolkit.py", "runtime/beats.py"):
+        assert os.path.join(REPO, "vrgdg_tpu_torch", module) in files, module
     found = {}
     for path in files:
         with open(path, encoding="utf-8") as handle:

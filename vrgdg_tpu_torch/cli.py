@@ -20,6 +20,10 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
              difference/blink) of two images or two videos
   luts     — list bundled LUTs
   make-lut — synthesize a palette .cube file
+  beats    — beat & impact analysis -> beat_data JSON (host numpy)
+  scene-srt — beat-aligned scene durations -> SRT (host)
+  audio    — waveform toolkit: split, srt-split, delay, peaks (host)
+  serve    — the HTTP API server (``vrgdg_tpu_torch.server``) on the device
 
 ``--device`` defaults to ``cuda``; on a machine without a card the command
 stops with an error unless ``--device cpu`` is given.
@@ -148,6 +152,76 @@ def _face_repair(args, device) -> None:
         _print(fr.rebuild_video(
             args.manifest, args.out, fixed_dir=args.fixed_dir,
             only_ranges=args.only_ranges, device=device))
+
+
+def _beats(args) -> None:
+    from .runtime import audio_toolkit as at
+    from .runtime import beats as beats_rt
+
+    stems = {name: at.load_audio(path) if path else None
+             for name, path in (("drums", args.drums), ("bass", args.bass),
+                                ("vocals", args.vocals),
+                                ("other", args.other))}
+    data = beats_rt.analyze_beats(at.load_audio(args.mix), **stems)
+    if args.output:
+        os.makedirs(os.path.dirname(os.path.abspath(args.output)),
+                    exist_ok=True)
+        with open(args.output, "w", encoding="utf-8") as handle:
+            json.dump(data, handle)
+        data = {**data, "beats": f"({len(data['beats'])} beats)",
+                "output": args.output}
+    _print(data)
+
+
+def _scene_srt(args) -> None:
+    from .runtime import beats as beats_rt
+
+    with open(args.beat_data, "r", encoding="utf-8") as handle:
+        beat_data = json.load(handle)
+    result = beats_rt.generate_scene_srt(
+        beat_data, args.min_duration, args.max_duration, args.bias,
+        args.duration_preset, args.seed, output_path=args.output or None)
+    if args.output:
+        result = {k: v for k, v in result.items() if k != "srt_text"}
+    _print(result)
+
+
+def _audio(args) -> None:
+    from .runtime import audio_toolkit as at
+
+    if args.action == "peaks":
+        # peaks decodes internally: no second full decode here
+        from .runtime import audio as audio_rt
+        _print(audio_rt.read_audio_peaks(args.input, args.target_peaks))
+        return
+    audio = at.load_audio(args.input)
+    if args.action == "split":
+        durations = [float(v) for v in args.durations.split(",") if v]
+        result = at.split_audio_by_durations(
+            audio, durations, args.offset, pad_to_chunk=args.pad_to_chunk)
+        out_dir = args.output or os.path.dirname(os.path.abspath(args.input))
+        paths = [at.save_wav(os.path.join(out_dir, f"segment_{i:04d}.wav"),
+                             seg)
+                 for i, seg in enumerate(result["segments"])]
+        _print({**result["meta"], "outputs": paths,
+                "total_duration": result["total_duration"]})
+    elif args.action == "srt-split":
+        result = at.split_audio_srt(
+            audio, args.chunk_index, srt_source=args.srt or None,
+            fixed_duration=args.fixed_duration, fps=args.fps,
+            tail_loss_frames=args.tail_loss_frames,
+            pre_frames=args.pre_frames)
+        segment = result.pop("audio")
+        if args.output:
+            result["output"] = at.save_wav(args.output, segment)
+        _print(result)
+    else:
+        delayed = at.delay_audio_by_index(audio, args.chunk_index,
+                                          args.delay_ms)
+        out = args.output or os.path.splitext(args.input)[0] + "_delayed.wav"
+        _print({"output": at.save_wav(out, delayed),
+                "chunk_index": args.chunk_index, "delay_ms": args.delay_ms,
+                "samples": int(delayed["waveform"].shape[-1])})
 
 
 def main(argv=None):
@@ -281,6 +355,57 @@ def main(argv=None):
     p = sub.add_parser("probe", help="video metadata")
     p.add_argument("input")
 
+    p = sub.add_parser("beats",
+                       help="beat & impact analysis -> beat_data JSON")
+    p.add_argument("mix", help="final mix audio file")
+    p.add_argument("--drums", default=None)
+    p.add_argument("--bass", default=None)
+    p.add_argument("--vocals", default=None)
+    p.add_argument("--other", default=None)
+    p.add_argument("-o", "--output", default="",
+                   help="write beat_data JSON here")
+
+    p = sub.add_parser("scene-srt",
+                       help="beat-aligned scene durations -> SRT")
+    p.add_argument("beat_data", help="beat_data JSON file (from `beats`)")
+    p.add_argument("-o", "--output", default="", help="SRT output path")
+    p.add_argument("--min-duration", type=float, default=2.0)
+    p.add_argument("--max-duration", type=float, default=10.0)
+    p.add_argument("--bias", type=float, default=0.7)
+    p.add_argument("--duration-preset", default="impact_weighted",
+                   choices=["impact_weighted", "varied_no_repeat",
+                            "clustered_no_repeat"])
+    p.add_argument("--seed", type=int, default=0)
+
+    p = sub.add_parser("audio", help="waveform toolkit")
+    p.add_argument("action", choices=["split", "srt-split", "delay",
+                                      "peaks"])
+    p.add_argument("input", help="audio file")
+    p.add_argument("-o", "--output", default="",
+                   help="output WAV (delay) / directory (splits)")
+    p.add_argument("--durations", default="",
+                   help='comma list of scene seconds, e.g. "2,3.5,4"')
+    p.add_argument("--offset", type=float, default=0.0)
+    p.add_argument("--pad-to-chunk", action="store_true",
+                   help="InfiniteTalk mode: pad every segment to 8 s")
+    p.add_argument("--srt", default="", help="SRT file for srt-split")
+    p.add_argument("--fixed-duration", type=float, default=0.0)
+    p.add_argument("--fps", type=int, default=24)
+    p.add_argument("--chunk-index", type=int, default=0)
+    p.add_argument("--tail-loss-frames", type=int, default=5)
+    p.add_argument("--pre-frames", type=int, default=0)
+    p.add_argument("--delay-ms", type=float, default=40.0)
+    p.add_argument("--target-peaks", type=int, default=600)
+
+    p = sub.add_parser("serve", help="run the HTTP API server")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8431)
+    p.add_argument("--distributed", action="store_true",
+                   help="initialize torch.distributed first (see "
+                        "vrgdg_tpu_torch.parallel.distributed for the env "
+                        "contract)")
+    _add_device(p)
+
     args = parser.parse_args(argv)
 
     if args.command == "probe":
@@ -297,12 +422,24 @@ def main(argv=None):
         path = write_cube(lut, args.output)
         _print({"output": path, "size": args.size, "colors": args.colors})
         return
+    host_commands = {"beats": _beats, "scene-srt": _scene_srt,
+                     "audio": _audio}
+    if args.command in host_commands:
+        host_commands[args.command](args)
+        return
 
     from .api import appliers
     try:
         device = appliers.resolve_device(args.device)
     except RuntimeError as exc:
         parser.error(str(exc))
+    if args.command == "serve":
+        if args.distributed:
+            from .parallel import initialize_distributed
+            initialize_distributed()
+        from .server import main as serve_main
+        serve_main(host=args.host, port=args.port, device=device)
+        return
     if args.command == "enhance":
         _enhance(args, device)
         return

@@ -13,7 +13,8 @@ library as ``<name>.log``.
 
 :data:`LAUNCHES` counts the kernel launches of every wrapper; a wrapper
 adds one through :func:`check_launch` after its kernel launched, and
-nowhere else.
+nowhere else.  The count is taken under a lock: the server launches
+kernels from several request threads at once.
 
 Nothing here runs at import time: the CPU test suite imports every module
 of the package on a machine without ``nvcc``.
@@ -76,6 +77,7 @@ class AdjustParams(ctypes.Structure):
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, BuiltLibrary] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -90,7 +92,8 @@ def check_launch(lib: ctypes.CDLL, code: int, name: str) -> None:
         message = lib.vrgdg_cuda_error_string(code).decode(errors="replace")
         raise RuntimeError(f"{name} launch failed: CUDA error {code} "
                            f"({message})")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def find_nvcc() -> str:

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -174,25 +175,39 @@ def _device_matrix(src: int, dst: int, method: str,
     return torch.from_numpy(resample_matrix(src, dst, method)).to(device)
 
 
+_IEEE_LOCK = threading.Lock()
+_IEEE_STATE = {"depth": 0, "saved": None}
+
+
 @contextlib.contextmanager
 def _ieee_fp32_matmul():
     """Run the block's float32 matmuls in IEEE float32 on CUDA, whatever
     TF32 setting the process chose, and restore that setting after.
 
     The setting is process-wide, so a matmul on another thread during the
-    block runs in float32 too.  A process that used the newer
-    ``fp32_precision`` API refuses reads of ``allow_tf32``; that API is
-    used then."""
+    block runs in float32 too.  Blocks may overlap on several threads (the
+    server's requests): the first to enter saves the setting and the last
+    to leave restores it, so no block sees another restore TF32 under it.
+    A process that used the newer ``fp32_precision`` API refuses reads of
+    ``allow_tf32``; that API is used then."""
     flags = torch.backends.cuda.matmul
-    try:
-        name, saved, ieee = "allow_tf32", flags.allow_tf32, False
-    except RuntimeError:
-        name, saved, ieee = "fp32_precision", flags.fp32_precision, "ieee"
-    setattr(flags, name, ieee)
+    with _IEEE_LOCK:
+        if _IEEE_STATE["depth"] == 0:
+            try:
+                name, saved, ieee = "allow_tf32", flags.allow_tf32, False
+            except RuntimeError:
+                name, saved, ieee = ("fp32_precision", flags.fp32_precision,
+                                     "ieee")
+            setattr(flags, name, ieee)
+            _IEEE_STATE["saved"] = (name, saved)
+        _IEEE_STATE["depth"] += 1
     try:
         yield
     finally:
-        setattr(flags, name, saved)
+        with _IEEE_LOCK:
+            _IEEE_STATE["depth"] -= 1
+            if _IEEE_STATE["depth"] == 0:
+                setattr(flags, *_IEEE_STATE["saved"])
 
 
 def _resample_axis(x: torch.Tensor, axis: int, src: int, dst: int,

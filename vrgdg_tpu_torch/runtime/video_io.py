@@ -1,9 +1,10 @@
 """Host-side media I/O: probing, batched decode (sequential or parallel),
-codec-fallback encode, segment concatenation, and the uint8 <-> float
-conversions on the device.
+codec-fallback encode, segment concatenation, the uint8 <-> float
+conversions on the device, and the host helpers of chunked renders, set
+assembly and comparison grids.
 
-Counterpart of the parts of :mod:`vrgdg_tpu.runtime.video_io` that the
-appliers and the enhancer job use.  OpenCV handles decode/encode on the
+Counterpart of :mod:`vrgdg_tpu.runtime.video_io`; everything but the
+device conversions is host code copied as it is.  OpenCV handles decode/encode on the
 CPU and is imported lazily, so the package imports (and the in-memory
 main path runs) on a machine without it.  Frames cross the host/device
 boundary as uint8 both ways (4x fewer bytes than float32);
@@ -15,8 +16,10 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import math
 import os
 import queue
+import re
 import shutil
 import subprocess
 import threading
@@ -31,6 +34,16 @@ IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".webp", ".bmp"}
 
 # Preference order from the reference (VRGDG_LUTVideoTools.py:26-31).
 CODEC_CANDIDATES = ("avc1", "H264", "X264", "mp4v")
+
+
+def safe_name(value, fallback: str = "video") -> str:
+    """Sanitize a user-supplied file name
+    (``VRGDG_StandaloneVideoEnhancerNodes.py:26-31``)."""
+    name = os.path.basename(str(value or "").strip()) or fallback
+    stem, ext = os.path.splitext(name)
+    stem = re.sub(r"[^A-Za-z0-9._-]+", "_", stem).strip("._") or fallback
+    ext = re.sub(r"[^A-Za-z0-9.]+", "", ext)
+    return stem[:100] + ext[:12]
 
 
 def normalize_video_path(value) -> str:
@@ -646,3 +659,600 @@ class PrefetchingReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def pad_frames_array(frames: np.ndarray, pad_frames: int,
+                     pad_front: bool = False) -> np.ndarray:
+    """Repeat the first (preroll) or last (tail) frame ``pad_frames``
+    times (``GeneralVideoNodes.py:1945-1988``)."""
+    frames = np.asarray(frames)
+    pad_frames = int(pad_frames)
+    if frames.shape[0] == 0 or pad_frames <= 0:
+        return frames
+    edge = frames[:1] if pad_front else frames[-1:]
+    padding = np.repeat(edge, pad_frames, axis=0)
+    parts = [padding, frames] if pad_front else [frames, padding]
+    return np.concatenate(parts, axis=0)
+
+
+def split_frames(frames: np.ndarray, chunk_count: int,
+                 frames_per_chunk: int) -> list[np.ndarray]:
+    """Split a BHWC batch into ``chunk_count`` fixed-size chunks; chunks
+    beyond the data are empty ``(0, H, W, C)`` batches
+    (``nodes.py:790-840``, VRGDG_VideoSplitter — minus
+    the node's fixed 50-output padding, which is graph plumbing)."""
+    frames = np.asarray(frames)
+    total = frames.shape[0] if frames.ndim else 0
+    # placeholder spatial dims only when there is NO data to take the
+    # real shape from (the reference's total==0 case, nodes.py:816-821)
+    spatial = frames.shape[1:] if total else (512, 512, 3)
+    empty = np.zeros((0, *spatial), frames.dtype if total else np.float32)
+    out: list[np.ndarray] = []
+    for i in range(max(1, int(chunk_count))):
+        start = i * int(frames_per_chunk)
+        out.append(frames[start:start + int(frames_per_chunk)]
+                   if start < total else empty)
+    return out
+
+
+def add_preroll_frames(frames_per_scene: int, chunk_index: int,
+                       preroll_frames: int = 6) -> tuple[int, int]:
+    """Extra front frames for non-first chunks; returns
+    ``(total_frames_to_generate, preroll_frames_to_trim)``
+    (``video_preroll.py:1-11``)."""
+    if int(chunk_index) == 0:
+        return int(frames_per_scene), 0
+    return int(frames_per_scene) + int(preroll_frames), int(preroll_frames)
+
+
+def trim_image_batch(frames: np.ndarray, frames_per_scene: int,
+                     preroll_frames: int, chunk_index: int,
+                     tail_loss_frames: int = 6) -> np.ndarray:
+    """Trim a chunked render's frame batch to the exact scene length
+    (``GeneralVideoNodes.py:2047-2106``): drop the preroll at the front
+    and the generator's tail-loss frames at the back, both only for
+    non-first chunks, then clamp to ``frames_per_scene``."""
+    frames = np.asarray(frames)
+    total = frames.shape[0]
+    start = int(preroll_frames) if int(chunk_index) > 0 else 0
+    tail = int(tail_loss_frames) if int(chunk_index) > 0 else 0
+    end = min(start + int(frames_per_scene), max(0, total - tail))
+    start = max(0, min(start, total))
+    end = max(start, min(end, total))
+    return frames[start:end]
+
+
+def trim_image_batch_srt(frames: np.ndarray, frames_per_scene: int,
+                         pre_frames: int, chunk_index: int) -> np.ndarray:
+    """SRT-mode trim variant (``GeneralVideoNodes2.py:756-826``,
+    VRGDG_TrimImageBatch_SRTOnly): slice ``[pre_frames : pre_frames +
+    frames_per_scene]`` with NO tail trim; the first chunk without
+    preroll takes the batch head, and an empty slice falls back to the
+    head rather than returning nothing."""
+    frames = np.asarray(frames)
+    total = frames.shape[0]
+    if int(chunk_index) == 0 and int(pre_frames) <= 0:
+        return frames[:min(int(frames_per_scene), total)]
+    start = min(int(pre_frames), total)
+    end = min(start + int(frames_per_scene), total)
+    if end <= start:
+        return frames[:min(int(frames_per_scene), total)]
+    return frames[start:end]
+
+
+def build_chunk_output_path(output_folder: str, chunk_index: int,
+                            base_name: str = "video",
+                            overwrite_mode: str = "overwrite",
+                            srt_naming: bool = False) -> str:
+    """Canonical output path for one chunk of a chunked render
+    (``GeneralVideoNodes.py:1668-1789``).
+
+    ``srt_naming=True`` uses the SRT pipeline's
+    ``{base}_{index+1:04d}_{index:04d}`` double-numbered scheme (after
+    stripping any trailing numeric groups from ``base_name``) and backs
+    existing chunks up under their own names; the plain scheme is
+    ``{base}_{index:04d}`` with timestamped ``.bak`` backups.  Returns
+    the extension-less path stem the encoder appends to.
+    """
+    os.makedirs(output_folder, exist_ok=True)
+    chunk_index = int(chunk_index)
+    if srt_naming:
+        base_name = re.sub(r"(?:_\d+)+$", "", base_name)
+        filename = f"{base_name}_{chunk_index + 1:04d}_{chunk_index:04d}"
+    else:
+        filename = f"{base_name}_{chunk_index:04d}"
+    output_path = os.path.join(output_folder, filename)
+    if str(overwrite_mode).lower() == "backup":
+        backup_dir = os.path.join(output_folder, "backup")
+        os.makedirs(backup_dir, exist_ok=True)
+        for name in os.listdir(output_folder):
+            # exact-stem match: "video_0001" must not sweep the SRT-named
+            # "video_0001_0000.mp4" (or "video_00010.mp4") into backup
+            if name == filename + ".mp4":
+                source = os.path.join(output_folder, name)
+                if srt_naming:
+                    destination = os.path.join(backup_dir, name)
+                else:
+                    stamp = time.strftime("%Y%m%d_%H%M%S")
+                    destination = os.path.join(backup_dir,
+                                               f"{name}.{stamp}.bak")
+                os.replace(source, destination)
+    return output_path
+
+
+def trim_final_clip(output_folder: str, base_name: str,
+                    frames_per_scene: int, audio_total_duration: float,
+                    index: int, total_sets: int, fps: float,
+                    overwrite: bool = True) -> str:
+    """Trim the final padded chunk of a chunked render to the audio's
+    remaining duration (``GeneralVideoNodes.py:1822-1893``): runs only for
+    the last chunk, finds the highest-numbered ``{base}_NNNN.mp4``, and
+    stream-copies the first ``remaining`` seconds (re-encoding through the
+    cv2 codec chain when ffmpeg is unavailable).  Returns the final path
+    ("" when not the last chunk or no chunk file exists)."""
+    if int(index) != int(total_sets) - 1:
+        return ""
+    pattern = re.compile(rf"{re.escape(base_name)}_(\d{{4}})")
+    files = [f for f in os.listdir(output_folder)
+             if f.startswith(base_name + "_") and f.endswith(".mp4")
+             and pattern.search(f)]
+    if not files:
+        return ""
+    last_clip = os.path.join(
+        output_folder, max(files, key=lambda f: int(pattern.search(f).group(1))))
+
+    scene_duration = float(frames_per_scene) / float(fps)
+    remaining = float(audio_total_duration) - float(index) * scene_duration
+    if remaining <= 0:
+        return last_clip
+
+    final_path = last_clip if overwrite else os.path.join(
+        output_folder, f"{base_name}_{int(index):04d}_trimmed.mp4")
+    temp_path = final_path + ".tmp.mp4"
+    ffmpeg = find_ffmpeg()
+    if ffmpeg is not None:
+        subprocess.run([ffmpeg, "-y", "-i", last_clip,
+                        "-t", f"{remaining:.6f}", "-c", "copy", temp_path],
+                       check=True, capture_output=True)
+    else:
+        import cv2
+
+        meta_capture = cv2.VideoCapture(last_clip)
+        clip_fps = float(meta_capture.get(cv2.CAP_PROP_FPS) or fps)
+        width = int(meta_capture.get(cv2.CAP_PROP_FRAME_WIDTH))
+        height = int(meta_capture.get(cv2.CAP_PROP_FRAME_HEIGHT))
+        meta_capture.release()
+        keep = max(1, int(round(remaining * clip_fps)))
+
+        def produce():
+            reader = VideoReader(last_clip, batch_size=8, end_frame=keep)
+            with reader:
+                for _, batch in reader:
+                    yield batch
+
+        write_video_with_fallback(temp_path, clip_fps, width, height,
+                                  produce)
+    os.replace(temp_path, final_path)
+    return final_path
+
+
+def combine_scene_videos(videos, audio_meta, fps: float = 25.0,
+                         index: int = 0, total_sets: int = 1,
+                         groups_in_last_set: int = 16,
+                         pad_short: bool = False) -> np.ndarray:
+    """Trim each scene clip to its audio-metered duration and
+    concatenate along the frame axis — the HuMo set combiner
+    (``HumoAutomation.py:892-1037``, CombinevideosV3;
+    ``:50-134``, V2).
+
+    ``videos`` is an ordered list of BHWC frame batches (``None`` slots
+    allowed, up to 16 per set). ``audio_meta`` carries ``durations``
+    (seconds) or ``durations_frames``; a missing/zero duration keeps the
+    clip's own length under ``pad_short`` (V2) and trims to a 1-frame
+    placeholder otherwise (V3). On the final set (``index ==
+    total_sets - 1``) slots beyond ``groups_in_last_set`` are skipped.
+    ``pad_short`` repeats the last frame up to the target (the V2
+    behavior; V3 leaves short renders as-is so generation shortfalls
+    stay visible).
+    """
+    scene_cap = 16
+    if not isinstance(audio_meta, dict):
+        raise ValueError("audio_meta must be a dict")
+    durations = audio_meta.get("durations_frames")
+    in_frames = durations is not None
+    if durations is None:
+        durations = audio_meta.get("durations")
+    if durations is None:
+        raise ValueError(
+            "audio_meta missing 'durations' or 'durations_frames' list")
+    durations = list(durations)[:scene_cap]
+    durations += [0.0] * (scene_cap - len(durations))
+
+    last_run = int(index) == int(total_sets) - 1
+    limit = scene_cap
+    if last_run:
+        limit = max(1, min(int(groups_in_last_set), scene_cap))
+
+    pieces = []
+    for slot, video in enumerate(list(videos)[:limit], start=1):
+        if video is None:
+            continue
+        video = np.asarray(video)
+        if video.ndim != 4:
+            raise ValueError(
+                f"video_{slot} must have shape (frames,H,W,C), got "
+                f"{tuple(video.shape)}")
+        value = float(durations[slot - 1])
+        if value > 0:
+            target = max(1, int(round(value if in_frames
+                                      else value * float(fps))))
+        elif pad_short:
+            # V2: a zero/missing duration keeps the clip's own length
+            target = video.shape[0]
+        else:
+            # V3: max(1, round(0)) — a 1-frame placeholder keeps the
+            # set's frame count tracking the audio meta (:917-930)
+            target = 1
+        if video.shape[0] > target:
+            video = video[:target]
+        elif video.shape[0] < target and pad_short:
+            repeat = np.repeat(video[-1:], target - video.shape[0],
+                               axis=0)
+            video = np.concatenate([video, repeat], axis=0)
+        pieces.append(video.astype(np.float32, copy=False))
+    if not pieces:
+        raise ValueError("No video inputs detected. Provide at least "
+                         "one scene clip.")
+    return np.concatenate(pieces, axis=0)
+
+
+def list_final_set_videos(folder: str) -> list[str]:
+    """The rendered set finals in a HuMo output folder — sorted
+    ``*-audio.mp4`` files (``HumoAutomation.py:236-241,2575-2581``)."""
+    if not os.path.isdir(folder):
+        return []
+    return sorted(name for name in os.listdir(folder)
+                  if name.lower().endswith(".mp4")
+                  and "-audio" in name.lower())
+
+
+def assemble_final_video(folder: str, audio=None, threshold: int = 3,
+                         output_name: str = "FINAL_VIDEO.mp4",
+                         redo: bool = False) -> dict:
+    """Threshold-gated final assembly (``HumoAutomation.py:2548-2663``,
+    VRGDG_CreateFinalVideo; SRT/redo variant ``:2673-2880``): once at
+    least ``threshold`` set finals exist in ``folder``, concatenate
+    them and lay the original clean audio underneath.
+
+    ``redo=True`` is the SRT variant's rerun mode: the threshold gate
+    is bypassed, the output becomes ``FINAL_VIDEO_REDO.mp4``, and a
+    non-empty ``vrgdg_temp/vrgdg_override_queue.json`` defers assembly
+    until the queued group reruns drain.  In both modes an existing
+    output is never overwritten — a numbered sibling is chosen
+    (``:2751-2760``).
+
+    The reference shells out to ffmpeg twice (stream-copy concat, then
+    aac mux); here :func:`concat_videos` provides the same ffmpeg path
+    plus the native stream-copy / cv2 degradations this image needs.
+    Returns ``{skipped, count, output, backend, audio}``.
+    """
+    videos = list_final_set_videos(folder)
+    if redo:
+        output_name = "FINAL_VIDEO_REDO.mp4"
+        override_path = os.path.join(folder, "vrgdg_temp",
+                                     "vrgdg_override_queue.json")
+        if os.path.isfile(override_path):
+            import json as _json
+
+            with open(override_path, "r", encoding="utf-8") as handle:
+                remaining = _json.load(handle)
+            if remaining:
+                return {"skipped": True, "count": len(videos),
+                        "threshold": int(threshold), "output": "",
+                        "backend": "", "audio": False,
+                        "waiting_for": remaining}
+    elif len(videos) < threshold:
+        return {"skipped": True, "count": len(videos),
+                "threshold": int(threshold), "output": "",
+                "backend": "", "audio": False}
+    if not videos:
+        return {"skipped": True, "count": 0,
+                "threshold": int(threshold), "output": "",
+                "backend": "", "audio": False}
+
+    base, ext = os.path.splitext(output_name)
+    suffix = 2
+    while os.path.exists(os.path.join(folder, output_name)):
+        output_name = f"{base}{suffix}{ext}"
+        suffix += 1
+
+    first = probe_video(os.path.join(folder, videos[0]))
+    audio_path = None
+    if audio is not None:
+        from .audio_toolkit import save_wav
+
+        audio_path = os.path.join(folder, "_original_audio.wav")
+        save_wav(audio_path, audio)
+    output_path = os.path.join(folder, output_name)
+    try:
+        result = concat_videos(
+            [os.path.join(folder, name) for name in videos],
+            output_path, first["fps"], first["width"],
+            first["height"], source_audio_path=audio_path)
+    finally:
+        if audio_path:
+            with contextlib.suppress(OSError):
+                os.remove(audio_path)
+    return {"skipped": False, "count": len(videos),
+            "threshold": int(threshold), "output": output_path,
+            "backend": result["backend"], "audio": result["audio"]}
+
+
+GRID_LABEL_BAND = 40
+_GRID_VIDEO_EXTENSIONS = {".mp4", ".mov", ".mkv", ".webm", ".avi"}
+
+
+def find_grid_videos(folder: str) -> list[str]:
+    """Videos eligible for a comparison grid, sorted by (lowercased
+    name, mtime, path); prior grid/XYZ outputs excluded
+    (``LTXLoraTrain.py:7992-8006``)."""
+    matches = []
+    for entry in os.scandir(folder):
+        if not entry.is_file():
+            continue
+        if os.path.splitext(entry.name)[1].lower() \
+                not in _GRID_VIDEO_EXTENSIONS:
+            continue
+        upper = entry.name.upper()
+        if "_XYZ_COMPARE_" in upper or "_VIDEOGRID_" in upper:
+            continue
+        matches.append((entry.name.lower(), entry.stat().st_mtime,
+                        entry.path))
+    matches.sort()
+    return [os.path.normpath(path) for _, _, path in matches]
+
+
+def _fit_grid_tile(frame_bgr, cell_width, cell_height, label_text,
+                   band_height):
+    """Letterbox one frame into a labeled tile (``LTXLoraTrain.py:
+    8062-8089``): aspect-preserving INTER_AREA downfit, centered, with
+    a centered white caption in the label band."""
+    import cv2
+
+    canvas = np.zeros((int(cell_height), int(cell_width), 3), np.uint8)
+    content_height = max(16, int(cell_height) - int(band_height))
+    frame_height, frame_width = frame_bgr.shape[:2]
+    scale = min(float(cell_width) / max(1, frame_width),
+                float(content_height) / max(1, frame_height))
+    new_width = max(1, int(round(frame_width * scale)))
+    new_height = max(1, int(round(frame_height * scale)))
+    resized = cv2.resize(frame_bgr, (new_width, new_height),
+                         interpolation=cv2.INTER_AREA)
+    x0 = max(0, (int(cell_width) - new_width) // 2)
+    y0 = int(band_height) + max(0, (content_height - new_height) // 2)
+    canvas[y0:y0 + new_height, x0:x0 + new_width] = resized
+
+    if band_height:
+        font = cv2.FONT_HERSHEY_SIMPLEX
+        font_scale = max(0.45, min(1.0, float(cell_width) / 420.0))
+        text = str(label_text or "")
+        (text_w, text_h), baseline = cv2.getTextSize(text, font,
+                                                     font_scale, 2)
+        cv2.putText(canvas, text,
+                    (max(8, (int(cell_width) - text_w) // 2),
+                     max(text_h + 6,
+                         (int(band_height) + text_h) // 2 - baseline)),
+                    font, font_scale, (255, 255, 255), 2, cv2.LINE_AA)
+    return canvas
+
+
+def render_video_grid(sources, labels=None, cell_width: int = 0,
+                      cell_height: int = 0,
+                      label_tiles: bool = True) -> np.ndarray:
+    """Labeled comparison grid of N videos — the review tool the
+    reference buries in its trainer module
+    (``LTXLoraTrain.py:7926-8316``, VRGDG_VideoFolderGridPlot).
+
+    ``sources`` is a list of video paths or of (frames, H, W, 3) float
+    [0,1] arrays (mixable).  Columns = ⌈√N⌉; the cell auto-sizes from
+    the first source (+40 px label band).  Paths stream frame-by-frame
+    holding each video's last frame until the longest ends; array
+    sources clamp their final frame the same way.  Returns (frames,
+    rows*cell_h, cols*cell_w, 3) float32 RGB.
+    """
+    import cv2
+
+    if not sources:
+        raise ValueError("render_video_grid needs at least one source")
+    band = GRID_LABEL_BAND if label_tiles else 0
+    labels = list(labels or [])
+    labels += [""] * (len(sources) - len(labels))
+
+    def _first_resolution(source):
+        if isinstance(source, str):
+            probe = probe_video(source)
+            return probe["width"], probe["height"]
+        array = np.asarray(source)
+        return int(array.shape[-2]), int(array.shape[-3])
+
+    if not (cell_width > 0 and cell_height > 0):
+        width0, height0 = _first_resolution(sources[0])
+        cell_width = int(cell_width) if cell_width > 0 else width0
+        cell_height = int(cell_height) if cell_height > 0 \
+            else height0 + band
+    columns = max(1, math.ceil(math.sqrt(len(sources))))
+    rows = math.ceil(len(sources) / columns)
+
+    resolved_labels = []
+    for index, source in enumerate(sources):
+        fallback = os.path.splitext(os.path.basename(source))[0] \
+            if isinstance(source, str) else f"video{index + 1}"
+        resolved_labels.append(str(labels[index]).strip() or fallback)
+
+    readers = []
+    try:
+        for source in sources:
+            if isinstance(source, str):
+                capture = cv2.VideoCapture(source)
+                if not capture.isOpened():
+                    raise RuntimeError(
+                        f"Could not open video for grid render: "
+                        f"{source}")
+                readers.append({"capture": capture, "last": None,
+                                "done": False})
+            else:
+                array = np.asarray(source)
+                if array.ndim == 3:
+                    array = array[None]
+                readers.append({"frames": array, "cursor": 0})
+
+        output = []
+        blank = np.zeros((max(16, cell_height - band), cell_width, 3),
+                         np.uint8)
+        while True:
+            fresh = False
+            tiles = []
+            for reader in readers:
+                if "capture" in reader:
+                    frame = None
+                    if not reader["done"]:
+                        ok, read = reader["capture"].read()
+                        if ok and read is not None:
+                            frame = reader["last"] = read
+                            fresh = True
+                        else:
+                            reader["done"] = True
+                    if frame is None:
+                        frame = reader["last"] if reader["last"] \
+                            is not None else blank
+                else:
+                    frames = reader["frames"]
+                    source_index = min(reader["cursor"],
+                                       frames.shape[0] - 1)
+                    if reader["cursor"] < frames.shape[0]:
+                        fresh = True
+                    reader["cursor"] += 1
+                    rgb = np.clip(np.asarray(frames[source_index])
+                                  * 255.0, 0, 255).astype(np.uint8)
+                    frame = cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)
+                tiles.append(frame)
+            if not fresh:
+                break
+            grid = np.zeros((rows * cell_height, columns * cell_width,
+                             3), np.uint8)
+            for index, frame in enumerate(tiles):
+                tile = _fit_grid_tile(frame, cell_width, cell_height,
+                                      resolved_labels[index], band)
+                row, col = divmod(index, columns)
+                grid[row * cell_height:(row + 1) * cell_height,
+                     col * cell_width:(col + 1) * cell_width] = tile
+            output.append(cv2.cvtColor(grid, cv2.COLOR_BGR2RGB)
+                          .astype(np.float32) / 255.0)
+    finally:
+        for reader in readers:
+            if "capture" in reader:
+                reader["capture"].release()
+    if not output:
+        raise RuntimeError("No grid frames could be created from the "
+                           "provided sources.")
+    return np.stack(output)
+
+
+def add_label_bar(frames, label_text: str) -> np.ndarray:
+    """Append a black 60-px bar with a centered white label under each
+    frame — the V5 combiner's review-copy annotation
+    (``HumoAutomationExtra2.py:360-391``).
+
+    ``frames`` is float RGB in [0,1], shape (N,H,W,3); the result is
+    (N,H+60,W,3) float32.  Text metrics match the reference (Hershey
+    simplex, scale 1.0, thickness 2, anti-aliased, baseline at 70% of
+    the bar) so labeled review videos render identically.
+    """
+    import cv2
+
+    frames = np.asarray(frames)
+    if frames.ndim != 4 or frames.shape[-1] != 3:
+        raise ValueError(f"expected (N,H,W,3) RGB frames, got "
+                         f"{tuple(frames.shape)}")
+    bar_height = 60
+    text = str(label_text)
+    out = []
+    for frame in frames:
+        rgb = (np.asarray(frame) * 255).astype(np.uint8)
+        height, width = rgb.shape[:2]
+        canvas = np.zeros((height + bar_height, width, 3), np.uint8)
+        canvas[:height] = cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR)
+        (text_w, _), _ = cv2.getTextSize(
+            text, cv2.FONT_HERSHEY_SIMPLEX, 1.0, 2)
+        cv2.putText(canvas, text,
+                    ((width - text_w) // 2,
+                     height + int(bar_height * 0.7)),
+                    cv2.FONT_HERSHEY_SIMPLEX, 1.0, (255, 255, 255), 2,
+                    cv2.LINE_AA)
+        out.append(cv2.cvtColor(canvas, cv2.COLOR_BGR2RGB)
+                   .astype(np.float32) / 255.0)
+    return np.stack(out)
+
+
+def save_labeled_set_video(videos, audio_meta, folder: str,
+                           fps: float = 25.0, index: int = 0,
+                           total_sets: int = 1,
+                           groups_in_last_set: int = 16) -> str:
+    """Write the V5 combiner's labeled review sidecar
+    (``HumoAutomationExtra2.py:479-493``): each scene
+    clip trimmed to its audio-metered duration, annotated
+    ``set N - group M``, concatenated, and saved as
+    ``<folder>/WithLabels/set{N}_combined.mp4``.  Returns the output
+    path.  The clean (unlabeled) frames come from
+    :func:`combine_scene_videos` as before — the labeled copy is a
+    review artifact only.
+    """
+    import cv2
+
+    scene_cap = 16
+    last_run = int(index) == int(total_sets) - 1
+    limit = scene_cap
+    if last_run:
+        limit = max(1, min(int(groups_in_last_set), scene_cap))
+    labeled = [(slot, video) for slot, video
+               in enumerate(list(videos)[:limit], start=1)
+               if video is not None]
+    if not labeled:
+        raise ValueError("No video inputs detected.")
+
+    durations = audio_meta.get("durations_frames")
+    in_frames = durations is not None
+    if durations is None:
+        durations = audio_meta.get("durations")
+    if durations is None:
+        raise ValueError(
+            "audio_meta missing 'durations' or 'durations_frames'")
+    durations = list(durations)[:scene_cap]
+    durations += [0.0] * (scene_cap - len(durations))
+
+    pieces = []
+    for slot, video in labeled:
+        video = np.asarray(video)
+        value = float(durations[slot - 1])
+        target = max(1, int(round(value if in_frames
+                                  else value * float(fps))))
+        if video.shape[0] > target:
+            video = video[:target]
+        pieces.append(add_label_bar(
+            video, f"set {index + 1} - group {slot}"))
+
+    frames = np.concatenate(pieces, axis=0)
+    out_dir = os.path.join(folder, "WithLabels")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, f"set{index + 1}_combined.mp4")
+    height, width = frames.shape[1:3]
+    writer = cv2.VideoWriter(out_path,
+                             cv2.VideoWriter_fourcc(*"mp4v"),
+                             float(fps), (width, height))
+    try:
+        for frame in frames:
+            writer.write(cv2.cvtColor(
+                (frame * 255).astype(np.uint8), cv2.COLOR_RGB2BGR))
+    finally:
+        writer.release()
+    return out_path

@@ -1,0 +1,566 @@
+"""HTTP API of the port: the device-facing route groups of
+:mod:`vrgdg_tpu.server.routes` on aiohttp, like for like: the same paths,
+methods, status codes and JSON bodies, the same mutation guard, 1 GiB body
+limit and multipart upload in 1 MiB chunks.
+
+Registered groups (one function each, so later groups can be added one
+module at a time):
+
+- enhancer ``/vrgdg/video_enhancer/{upload,load,preview,render/start,
+  render/status,render/cancel,media}``;
+- LUT/grain/adjust under ``/vrgdg/music_builder/``: catalog, examples,
+  image and video appliers, previews, ``post_process/grade_video``,
+  presets and the two ``delete_preview`` paths;
+- ``/vrgdg/music_builder/create_silent_audio``, ``beats/analyze``,
+  ``beats/scene_srt`` and ``audio/peaks``;
+- compare ``/vrgdg/compare/{image,video,grid}``;
+- face fix ``/vrgdg/face_fix/...`` (eight paths);
+- ``/vrgdg/health``, ``/vrgdg/update/status``,
+  ``/vrgdg/node_canvas/status``, the panel at ``/vrgdg/ui`` and the ``/``
+  redirect to it.
+
+Not registered yet (their requests get 404): the music video builder
+project store, LLM instructions, lyrics and LLM batches, combined files,
+storyboard, text files and the audio library, the quick-input popup,
+prompt creator, start storyboard, video editor, LoRA dataset, Krea2 LoRA
+Studio, text pickers, graph plans and the workflow runner.  They are
+host-only and reach no device.
+
+Every handler that reaches the device takes the app's one device, which
+:func:`create_app` resolves once: ``cuda`` without a visible card raises
+there, and nothing on a request falls back to the CPU or to the eager
+grade.  Blocking work runs in the event loop's default executor, so
+requests reach the card from several threads at once, beside the
+enhancer's render thread.  Errors become ``{"ok": false, "error": ...}``:
+404 for ``FileNotFoundError``, 400 for anything else.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import functools
+import logging
+import os
+import time
+import uuid
+from dataclasses import dataclass
+from typing import Callable
+
+from aiohttp import web
+
+from .. import __version__
+from ..api import appliers, compare, paths
+from ..jobs import enhancer as enh
+from ..jobs import face_fix as ff
+from ..release_notes import latest_release, load_release_notes
+from ..runtime import video_io
+
+# The panel is a data file of the JAX package, read where it lies: reading
+# it imports nothing.
+PANEL_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), "vrgdg_tpu", "server", "static", "index.html")
+
+# GET routes that write project state anyway must pass the same
+# cross-site checks as POSTs (none of them is registered yet)
+_MUTATING_GET_PATHS = frozenset({
+    "/vrgdg/music_builder/export_project",
+})
+
+# grade_video's fused_mode as the panel and the JAX package name it, and
+# the port's name for the same path
+_FUSED_MODES = {"xla": "eager", "pallas": "fused"}
+
+_LOG = logging.getLogger(__name__)
+
+
+def _ok(**payload):
+    return web.json_response({"ok": True, **payload})
+
+
+def _err(exc, status=400):
+    return web.json_response({"ok": False, "error": str(exc)}, status=status)
+
+
+def _handler(fn):
+    """Wrap a handler body: a plain function runs in the executor; errors
+    become JSON (404 for ``FileNotFoundError``, else 400)."""
+
+    @functools.wraps(fn)
+    async def wrapper(request):
+        try:
+            if asyncio.iscoroutinefunction(fn):
+                return await fn(request)
+            return await asyncio.get_running_loop().run_in_executor(
+                None, fn, request)
+        except FileNotFoundError as exc:
+            return _err(exc, status=404)
+        except Exception as exc:  # noqa: BLE001 — the request boundary
+            _LOG.warning("%s %s failed", request.method, request.path,
+                         exc_info=True)
+            return _err(exc)
+
+    return wrapper
+
+
+async def _json(request):
+    """The JSON body; ``{}`` when it is missing or malformed."""
+    try:
+        return await request.json()
+    except Exception:  # noqa: BLE001 — as the JAX server's _json
+        return {}
+
+
+def _json_route(routes, path: str, fn: Callable[[dict], dict],
+                flat: bool = False) -> None:
+    """A JSON route: ``fn(payload)`` in the executor, answered as
+    ``{"ok": true, "result": ...}``, or its keys beside ``ok`` with
+    ``flat``."""
+
+    @routes.post(path)
+    @_handler
+    async def handler(request):
+        payload = await _json(request)
+        result = await asyncio.get_running_loop().run_in_executor(
+            None, fn, payload)
+        return _ok(**result) if flat else _ok(result=result)
+
+
+@web.middleware
+async def _mutation_guard(request, handler):
+    """Reject cross-site mutations, as the JAX server's middleware.
+
+    Every non-GET route can write user-supplied filesystem paths, so a
+    hostile web page must not be able to drive them via CSRF against
+    127.0.0.1: browsers attach an ``Origin`` header to cross-origin
+    POSTs, which same-host requests (the bundled panel) and header-less
+    local tools (curl, the CLI) never trip.  Setting ``VRGDG_TPU_TOKEN``
+    additionally requires ``X-VRGDG-Token`` on all mutating requests.
+    """
+    mutating = request.method not in ("GET", "HEAD", "OPTIONS") \
+        or request.path in _MUTATING_GET_PATHS
+    if mutating:
+        origin = request.headers.get("Origin")
+        if origin:
+            from urllib.parse import urlparse
+
+            if urlparse(origin).netloc != request.headers.get("Host", ""):
+                return web.json_response(
+                    {"ok": False,
+                     "error": "Cross-origin mutation rejected."},
+                    status=403)
+        token = os.environ.get("VRGDG_TPU_TOKEN", "")
+        if token and request.headers.get("X-VRGDG-Token") != token:
+            return web.json_response(
+                {"ok": False,
+                 "error": "Missing or invalid X-VRGDG-Token header."},
+                status=403)
+    return await handler(request)
+
+
+async def _drain_part(part, sink) -> None:
+    """Stream a multipart body part into ``sink(bytes)`` in 1 MiB chunks."""
+    chunk = await part.read_chunk(1 << 20)
+    while chunk:
+        sink(chunk)
+        chunk = await part.read_chunk(1 << 20)
+
+
+@dataclass(frozen=True)
+class _Context:
+    """What the route groups share: the folders, the device and its name."""
+
+    base_folder: str | None
+    luts_dir: str | None
+    device: object
+    backend: str
+
+
+# --------------------------------------------------------------------------
+# Route groups
+# --------------------------------------------------------------------------
+
+def _enhancer_routes(routes, ctx: _Context) -> None:
+    base, device, registry = ctx.base_folder, ctx.device, enh.JOBS
+
+    @routes.post("/vrgdg/video_enhancer/upload")
+    @_handler
+    async def enhancer_upload(request):
+        reader = await request.multipart()
+        saved_path = ""
+        async for part in reader:
+            if part.name != "video" or not part.filename:
+                continue
+            safe = video_io.safe_name(part.filename, "uploaded_video")
+            if os.path.splitext(safe)[1].lower() not in video_io.VIDEO_EXTENSIONS:
+                raise ValueError("Unsupported video type.")
+            saved_path = os.path.join(
+                enh.upload_folder(base),
+                f"{time.strftime('%Y%m%d_%H%M%S')}_{uuid.uuid4().hex[:8]}_{safe}")
+            with open(saved_path, "wb") as handle:
+                await _drain_part(part, handle.write)
+            break
+        if not saved_path:
+            raise ValueError("No video was uploaded.")
+        return _ok(video=video_io.probe_video(saved_path))
+
+    @routes.post("/vrgdg/video_enhancer/load")
+    @_handler
+    async def enhancer_load(request):
+        payload = await _json(request)
+        return _ok(video=video_io.probe_video(payload.get("path")))
+
+    _json_route(routes, "/vrgdg/video_enhancer/preview",
+                lambda p: enh.preview_frame(
+                    p.get("source_path"), float(p.get("timestamp") or 0),
+                    p.get("settings"), base_folder=base, device=device),
+                flat=True)
+
+    @routes.post("/vrgdg/video_enhancer/render/start")
+    @_handler
+    async def enhancer_start(request):
+        payload = await _json(request)
+        return _ok(job=enh.start_render(
+            payload, payload.get("resume_job_id") or "", registry=registry,
+            base_folder=base, device=device))
+
+    @routes.get("/vrgdg/video_enhancer/render/status")
+    @_handler
+    def enhancer_status(request):
+        job = registry.snapshot(str(request.query.get("job_id") or "").strip())
+        if not job:
+            raise FileNotFoundError("Enhancement job was not found.")
+        return _ok(job=job)
+
+    @routes.post("/vrgdg/video_enhancer/render/cancel")
+    @_handler
+    async def enhancer_cancel(request):
+        payload = await _json(request)
+        return _ok(job=enh.cancel_render(
+            str(payload.get("job_id") or "").strip(), registry=registry))
+
+    @routes.get("/vrgdg/video_enhancer/media")
+    @_handler
+    def enhancer_media(request):
+        path = os.path.normpath(os.path.abspath(
+            str(request.query.get("path") or "").strip()))
+        # only the roots this server itself writes media into
+        roots = (enh.root_folder(base), paths.preview_root(base),
+                 os.path.abspath(base or paths.DEFAULT_OUTPUT_ROOT))
+        if not any(paths._inside(root, path) for root in roots):
+            raise FileNotFoundError("Media file was not found.")
+        if not os.path.isfile(path):
+            raise FileNotFoundError("Media file was not found.")
+        allowed = video_io.VIDEO_EXTENSIONS | {".png", ".jpg", ".jpeg", ".webp"}
+        if os.path.splitext(path)[1].lower() not in allowed:
+            raise ValueError("Unsupported media type.")
+        return web.FileResponse(path)
+
+
+def _grade_video(payload: dict, luts_dir, device) -> dict:
+    """``post_process/grade_video`` with the JAX package's ``fused_mode``
+    names: ``xla`` runs the eager chain, ``pallas`` the two CUDA kernels
+    (which never fall back to eager); the result names the mode as asked."""
+    requested = str(payload.get("fused_mode", "xla"))
+    if requested not in _FUSED_MODES:
+        raise ValueError(f"Unknown fused_mode {requested!r}; expected 'xla' "
+                         "or 'pallas'.")
+    result = appliers.grade_video(
+        payload.get("input"), payload.get("output", ""),
+        lut_name=payload.get("lut"),
+        lut_strength=float(payload.get("strength", 10.0)),
+        adjust=payload.get("adjust"),
+        reference_image=payload.get("reference_image"),
+        match_strength=float(payload.get("match_strength", 1.0)),
+        sharpen_strength=float(payload.get("sharpen_strength", 0.0)),
+        grain_intensity=float(payload.get("grain_intensity", 0.0)),
+        saturation_mix=float(payload.get("saturation_mix", 0.5)),
+        seed=int(payload.get("seed", 0)),
+        batch_size=int(payload.get("batch_size", 8)),
+        preserve_audio=bool(payload.get("preserve_audio", True)),
+        luts_dir=luts_dir, fused_mode=_FUSED_MODES[requested], device=device)
+    return {**result, "fused_mode": requested}
+
+
+def _lut_grain_adjust_routes(routes, ctx: _Context) -> None:
+    base, luts_dir, device = ctx.base_folder, ctx.luts_dir, ctx.device
+
+    @routes.get("/vrgdg/music_builder/luts")
+    @_handler
+    def luts_list(request):
+        return _ok(**paths.list_luts(luts_dir))
+
+    @routes.get("/vrgdg/music_builder/luts/example")
+    @_handler
+    def luts_example(request):
+        name = str(request.query.get("name") or "")
+        catalog = paths.list_luts(luts_dir)
+        path = os.path.join(catalog["examples_dir"], os.path.basename(name))
+        if not os.path.isfile(path):
+            raise FileNotFoundError("Example image was not found.")
+        return web.FileResponse(path)
+
+    route = functools.partial(_json_route, routes)
+    route("/vrgdg/music_builder/luts/apply_image",
+          lambda p: appliers.apply_lut_to_image(
+              p.get("input"), p.get("lut"), p.get("output", ""),
+              float(p.get("strength", 10.0)),
+              replace_source=bool(p.get("replace_source")),
+              luts_dir=luts_dir, device=device))
+    route("/vrgdg/music_builder/luts/apply_video",
+          lambda p: appliers.apply_lut_to_video(
+              p.get("input"), p.get("lut"), p.get("output", ""),
+              float(p.get("strength", 10.0)),
+              batch_size=int(p.get("batch_size", 8)),
+              replace_source=bool(p.get("replace_source")),
+              preserve_audio=bool(p.get("preserve_audio", True)),
+              encode_crf=p.get("encode_crf", 23),
+              encode_preset=p.get("encode_preset", "medium"),
+              luts_dir=luts_dir, device=device))
+    route("/vrgdg/music_builder/luts/preview",
+          lambda p: appliers.preview_lut_on_media(
+              p.get("input"), p.get("lut"), float(p.get("strength", 10.0)),
+              luts_dir=luts_dir, base=base, device=device))
+    route("/vrgdg/music_builder/post_process/apply_film_grain_image",
+          lambda p: appliers.apply_film_grain_to_image(
+              p.get("input"), p.get("output", ""),
+              float(p.get("grain_intensity", 0.04)),
+              float(p.get("saturation_mix", 0.5)), p.get("seed"),
+              replace_source=bool(p.get("replace_source")), device=device))
+    route("/vrgdg/music_builder/post_process/apply_film_grain_video",
+          lambda p: appliers.apply_film_grain_to_video(
+              p.get("input"), p.get("output", ""),
+              float(p.get("grain_intensity", 0.04)),
+              float(p.get("saturation_mix", 0.5)), p.get("seed"),
+              batch_size=int(p.get("batch_size", 8)),
+              replace_source=bool(p.get("replace_source")),
+              preserve_audio=bool(p.get("preserve_audio", True)),
+              encode_crf=p.get("encode_crf", 26),
+              encode_preset=p.get("encode_preset", "medium"), device=device))
+    route("/vrgdg/music_builder/post_process/preview_film_grain",
+          lambda p: appliers.preview_film_grain_on_media(
+              p.get("input"), float(p.get("grain_intensity", 0.04)),
+              float(p.get("saturation_mix", 0.5)), p.get("seed"),
+              base=base, device=device))
+    route("/vrgdg/music_builder/post_process/apply_adjust_image",
+          lambda p: appliers.apply_adjust_to_image(
+              p.get("input"), p.get("output", ""), p.get("settings"),
+              replace_source=bool(p.get("replace_source")), device=device))
+    route("/vrgdg/music_builder/post_process/apply_adjust_video",
+          lambda p: appliers.apply_adjust_to_video(
+              p.get("input"), p.get("output", ""), p.get("settings"),
+              batch_size=int(p.get("batch_size", 8)),
+              replace_source=bool(p.get("replace_source")),
+              preserve_audio=bool(p.get("preserve_audio", True)),
+              encode_crf=p.get("encode_crf", 23),
+              encode_preset=p.get("encode_preset", "medium"), device=device))
+    route("/vrgdg/music_builder/post_process/preview_adjust",
+          lambda p: appliers.preview_adjust_on_media(
+              p.get("input"), p.get("settings"), base=base, device=device))
+    route("/vrgdg/music_builder/post_process/grade_video",
+          lambda p: _grade_video(p, luts_dir, device))
+    # the reference answers the delete under both prefixes
+    for prefix in ("post_process", "luts"):
+        route(f"/vrgdg/music_builder/{prefix}/delete_preview",
+              lambda p: {"deleted": appliers.delete_preview(p.get("path"),
+                                                            base=base)})
+
+    @routes.get("/vrgdg/music_builder/post_process/adjust_presets")
+    @_handler
+    def presets_list(request):
+        return _ok(presets=paths.list_adjust_presets(base=base))
+
+    route("/vrgdg/music_builder/post_process/save_adjust_preset",
+          lambda p: paths.save_adjust_preset(p.get("name"), p.get("settings"),
+                                             base=base))
+    route("/vrgdg/music_builder/post_process/import_adjust_preset",
+          lambda p: paths.import_adjust_preset(p.get("path"), base=base))
+    route("/vrgdg/music_builder/post_process/delete_adjust_preset",
+          lambda p: {"deleted": paths.delete_adjust_preset(p.get("name"),
+                                                           base=base)})
+
+
+def _beats_analyze(payload: dict) -> dict:
+    from ..runtime import audio_toolkit as at
+    from ..runtime import beats as beats_rt
+
+    stems = {name: at.load_audio(payload[key])
+             for name, key in (("drums", "drums_path"), ("bass", "bass_path"),
+                               ("vocals", "vocals_path"),
+                               ("other", "other_path"))
+             if payload.get(key)}
+    return beats_rt.analyze_beats(at.load_audio(payload["mix_path"]), **stems)
+
+
+def _beats_scene_srt(payload: dict) -> dict:
+    from ..runtime import beats as beats_rt
+
+    return beats_rt.generate_scene_srt(
+        payload.get("beat_data"), float(payload.get("min_duration", 2.0)),
+        float(payload.get("max_duration", 10.0)),
+        float(payload.get("bias", 0.7)),
+        str(payload.get("duration_preset", "impact_weighted")),
+        int(payload.get("seed", 0)),
+        output_path=payload.get("output_path") or None)
+
+
+def _audio_peaks(payload: dict) -> dict:
+    from ..runtime import audio as audio_rt
+
+    return audio_rt.read_audio_peaks(payload["path"],
+                                     int(payload.get("target_peaks", 600)))
+
+
+def _audio_routes(routes, ctx: _Context) -> None:
+    """Silent audio, beat analysis and scene durations, peak envelopes:
+    host numpy, no device."""
+    from ..runtime import audio
+
+    _json_route(routes, "/vrgdg/music_builder/create_silent_audio",
+                  audio.create_silent_audio, flat=True)
+    _json_route(routes, "/vrgdg/music_builder/beats/analyze", _beats_analyze)
+    _json_route(routes, "/vrgdg/music_builder/beats/scene_srt", _beats_scene_srt)
+    _json_route(routes, "/vrgdg/music_builder/audio/peaks", _audio_peaks)
+
+
+def _compare_routes(routes, ctx: _Context) -> None:
+    base, device = ctx.base_folder, ctx.device
+
+    def output(payload, ext):
+        given = str(payload.get("output") or "").strip()
+        if given:
+            return given
+        # under the served enhancer root, so the panel plays it back
+        return os.path.join(enh.root_folder(base),
+                            f"compare_{payload.get('mode', 'slider')}_"
+                            f"{int(time.time() * 1000)}{ext}")
+
+    _json_route(routes, "/vrgdg/compare/image", lambda p: compare.compare_images(
+        p.get("input_a"), p.get("input_b"), p.get("mode", "slider"),
+        output(p, ".png"),
+        slider_position=float(p.get("slider_position", 0.5)),
+        overlay_opacity=float(p.get("overlay_opacity", 0.5)),
+        difference_gain=float(p.get("difference_gain", 1.0)), device=device))
+    _json_route(routes, "/vrgdg/compare/video", lambda p: compare.compare_videos(
+        p.get("input_a"), p.get("input_b"), p.get("mode", "slider"),
+        output(p, ".mp4"),
+        slider_position=float(p.get("slider_position", 0.5)),
+        overlay_opacity=float(p.get("overlay_opacity", 0.5)),
+        difference_gain=float(p.get("difference_gain", 1.0)),
+        blink_speed=float(p.get("blink_speed", 1.0)),
+        batch_size=int(p.get("batch_size", 8)), device=device))
+
+    def grid(payload):
+        # a labeled comparison grid over explicit paths or a folder; host
+        # cv2, as in the JAX package
+        folder = str(payload.get("folder") or "").strip()
+        sources = video_io.find_grid_videos(folder) if folder \
+            else [str(path) for path in payload.get("paths", [])]
+        frames = video_io.render_video_grid(
+            sources, labels=payload.get("labels"),
+            cell_width=int(payload.get("cell_width", 0)),
+            cell_height=int(payload.get("cell_height", 0)),
+            label_tiles=bool(payload.get("label_tiles", True)))
+        out = str(payload.get("output") or "").strip() or os.path.join(
+            enh.root_folder(base),
+            f"compare_grid_{int(time.time() * 1000)}.mp4")
+        fps = float(payload.get("fps", 24.0))
+        with video_io.VideoWriter(out, fps, frames.shape[2],
+                                  frames.shape[1]) as writer:
+            for frame in video_io.array_to_frames(frames):
+                writer.write_bgr(frame)
+        return {"output": os.path.abspath(out), "frames": int(frames.shape[0]),
+                "tiles": len(sources), "fps": fps}
+
+    _json_route(routes, "/vrgdg/compare/grid", grid)
+
+
+def _face_fix_routes(routes, ctx: _Context) -> None:
+    route = functools.partial(_json_route, routes)
+    route("/vrgdg/face_fix/prepare", ff.prepare_face_fix, flat=True)
+    route("/vrgdg/face_fix/estimate_anchors", ff.estimate_anchors, flat=True)
+    route("/vrgdg/face_fix/accept_enhanced", ff.accept_enhanced_crop,
+          flat=True)
+    route("/vrgdg/face_fix/accept_enhanced_anchor", ff.accept_enhanced_anchor,
+          flat=True)
+    # the reference names this build_ltx_prompt; both names serve it
+    route("/vrgdg/face_fix/build_ltx_prompt", ff.build_ltx_inputs, flat=True)
+    route("/vrgdg/face_fix/build_ltx_inputs", ff.build_ltx_inputs, flat=True)
+    route("/vrgdg/face_fix/accept_ltx_frames", ff.accept_ltx_frames,
+          flat=True)
+    route("/vrgdg/face_fix/finalize",
+          lambda p: ff.finalize_face_fix(p, device=ctx.device), flat=True)
+
+
+def _status_routes(routes, ctx: _Context) -> None:
+    @routes.get("/vrgdg/health")
+    @_handler
+    def health(request):
+        # liveness must not depend on the release-notes file parsing, nor
+        # wait on the card: the backend's name was read in create_app
+        try:
+            notes, _source = load_release_notes()
+            latest = latest_release(notes) or {}
+        except Exception:  # noqa: BLE001 — degrade, as the JAX server
+            notes, latest = {}, {}
+        return _ok(version=__version__, backend=ctx.backend,
+                   product=notes.get("product"),
+                   latest_release={key: latest.get(key)
+                                   for key in ("version", "date", "title")}
+                   if latest else None)
+
+    @routes.get("/vrgdg/update/status")
+    @_handler
+    def update_status(request):
+        notes, source = load_release_notes()
+        return _ok(version=__version__, release_notes=notes,
+                   release_notes_source=source)
+
+    @routes.get("/vrgdg/node_canvas/status")
+    @_handler
+    def node_canvas_status(request):
+        return _ok(name="VRGDG Node Canvas Prototype", version=1,
+                   builder_connected=False)
+
+
+def _ui_routes(routes, ctx: _Context) -> None:
+    @routes.get("/vrgdg/ui")
+    @_handler
+    def ui_index(request):
+        return web.FileResponse(PANEL_PATH)
+
+    @routes.get("/")
+    async def root_redirect(request):
+        raise web.HTTPFound("/vrgdg/ui")
+
+
+_ROUTE_GROUPS = (_enhancer_routes, _lut_grain_adjust_routes, _audio_routes,
+                 _compare_routes, _face_fix_routes, _status_routes,
+                 _ui_routes)
+
+
+def create_app(base_folder: str | None = None, luts_dir: str | None = None,
+               device="cuda") -> web.Application:
+    """The aiohttp app on ``device`` (resolved here: ``cuda`` without a
+    card raises ``RuntimeError``); the device's name is read once, so
+    ``/vrgdg/health`` never waits on the card."""
+    device = appliers.resolve_device(device)
+    ctx = _Context(base_folder, luts_dir, device, appliers.device_name(device))
+    app = web.Application(client_max_size=1024 ** 3,
+                          middlewares=[_mutation_guard])
+    routes = web.RouteTableDef()
+    for register in _ROUTE_GROUPS:
+        register(routes, ctx)
+    app.add_routes(routes)
+    return app
+
+
+def main(host: str = "127.0.0.1", port: int = 8431,
+         base_folder: str | None = None, luts_dir: str | None = None,
+         device="cuda") -> None:
+    web.run_app(create_app(base_folder, luts_dir, device), host=host,
+                port=port)
+
+
+if __name__ == "__main__":
+    main()
