@@ -121,10 +121,29 @@ Phases, one line each (any failure raises and the exit code is not 0):
     peaks and silent audio on a click track; a cross-origin POST refused;
     and ``python -m vrgdg_tpu_torch.cli serve`` in a process of its own
     answering ``/vrgdg/health`` with the card's name.  Any reply other
-    than ``ok: true`` fails it, except the refusals it asks for.
+    than ``ok: true`` fails it, except the refusals it asks for;
+18. the host-only stores by request (the same in-process server with the
+    card as its device, the stores' clocks held at one instant so
+    time-stamped names agree): the music video builder project store, its
+    instruction store, the text and audio libraries, storyboard, video
+    editor and LoRA dataset on a 12-scene timeline over a seeded 60 s
+    stereo 44.1 kHz WAV, 1080p images as data URLs and a seeded 24-frame
+    1080p mp4v clip: new project, session, scene image and reference,
+    scene audio, the 60 s timeline mix, a trim, the analysis, the final
+    frame (cv2's seek, equal to the clip's last decoded frame: the card's
+    machine has no ffmpeg), the scan and restore of scene videos, the
+    audio route, the instruction store, the streamed ZIP export and the
+    multipart import, text files, an audio upload, the popup, storyboard,
+    the editor's remake queue drained, the LoRA pairs and a refused
+    delete.  Each answer must equal the in-process call on a twin root,
+    and the two roots must end as equal file trees (names and bytes, the
+    roots' paths blanked, file times left out); then the ``builder`` and
+    ``humo`` commands' actions.  None of the six kernels may launch, and
+    the phase must end within 60 s.
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
-runs, and 17's grade, enhancer and concurrent requests) is driven with the launch counts set to 0 just before it and
+runs, 17's grade, enhancer and concurrent requests, and 18's requests and
+commands) is driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -142,6 +161,7 @@ missing.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2403,6 +2423,7 @@ class _Server:
                                        daemon=True)
         self.thread.start()
         self.url = f"http://127.0.0.1:{port}"
+        self.calls = 0
 
     def call(self, method: str, path: str, json_body=None, params=None,
              data: bytes | None = None, headers=None, status: int = 200,
@@ -2432,6 +2453,7 @@ class _Server:
             got, raw = exc.code, exc.read()
             kind = exc.headers.get("Content-Type", "")
         wall_ms = (time.perf_counter() - started) * 1e3
+        self.calls += 1
         body = json.loads(raw) if kind.startswith("application/json") \
             else raw
         if got != status or (isinstance(body, dict)
@@ -2451,12 +2473,18 @@ class _Server:
         self.loop.close()
 
 
-def _multipart(name: str, filename: str, data: bytes) -> tuple[bytes, str]:
+def _multipart(name: str, filename: str, data: bytes,
+               fields: dict | None = None) -> tuple[bytes, str]:
+    """A multipart body: the text ``fields``, then one file part."""
     boundary = "vrgdgsmoke" + "7" * 16
-    body = (f"--{boundary}\r\nContent-Disposition: form-data; "
-            f'name="{name}"; filename="{filename}"\r\n'
-            "Content-Type: video/mp4\r\n\r\n").encode() + data \
-        + f"\r\n--{boundary}--\r\n".encode()
+    body = b"".join(
+        (f"--{boundary}\r\nContent-Disposition: form-data; "
+         f'name="{key}"\r\n\r\n{value}\r\n').encode()
+        for key, value in (fields or {}).items())
+    body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+             f'name="{name}"; filename="{filename}"\r\n'
+             "Content-Type: application/octet-stream\r\n\r\n").encode() \
+        + data + f"\r\n--{boundary}--\r\n".encode()
     return body, f"multipart/form-data; boundary={boundary}"
 
 
@@ -2918,6 +2946,551 @@ def server_phase(device, kind: str) -> dict:
     return launches
 
 
+# phase 18: the host-only stores by request
+BUILDER_STILL = (1080, 1920)                           # H, W
+BUILDER_SCENES = 12
+BUILDER_MIX = (60.0, 44100)                            # seconds, rate
+BUILDER_CLIP = (24, 24.0, (1920, 1080))                # frames, fps, W x H
+BUILDER_LIMIT_S = 60.0
+BUILDER_CLOCK = 1767225600.25                          # 2026-01-01 UTC
+# file-system times in the stores' answers (their own clocks are frozen)
+_STORE_TIMES = frozenset({"updated", "modified", "mtime"})
+_EPOCH = re.compile(r"\d{10}")
+
+
+class _FrozenClock:
+    """The ``time`` module with its clock held at one instant."""
+
+    def __init__(self, now: float):
+        self._now = now
+
+    def time(self) -> float:
+        return self._now
+
+    def strftime(self, fmt: str, moment=None) -> str:
+        return time.strftime(fmt, time.localtime(self._now)
+                             if moment is None else moment)
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@contextlib.contextmanager
+def _frozen_store_clocks(now: float):
+    """Hold the stores' clocks at ``now``, so a request and its in-process
+    twin name their time-stamped files alike; the files' own times stay
+    real."""
+    from datetime import datetime
+
+    from vrgdg_tpu_torch.api import (builder, instructions, lora_dataset,
+                                     storyboard, text_files, video_editor)
+
+    class Frozen(datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return datetime.fromtimestamp(now, tz)
+
+    saved = []
+    for module in (builder, instructions, lora_dataset, storyboard,
+                   text_files, video_editor):
+        for name, real, fake in (("time", time, _FrozenClock(now)),
+                                 ("datetime", datetime, Frozen)):
+            if getattr(module, name, None) is real:
+                saved.append((module, name, real))
+                setattr(module, name, fake)
+    try:
+        yield
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def _store_canon(value, root: str):
+    """A store's answer with its root as ``<root>`` and file times left
+    out."""
+    if isinstance(value, dict):
+        return {k: _store_canon(v, root) for k, v in value.items()
+                if k not in _STORE_TIMES}
+    if isinstance(value, (list, tuple)):
+        return [_store_canon(v, root) for v in value]
+    if isinstance(value, str):
+        return _EPOCH.sub("#", value.replace(root, "<root>"))
+    return value
+
+
+def _store_bytes(name: str, data: bytes, root: str):
+    if name.endswith(".json"):
+        try:
+            return _store_canon(json.loads(data.decode("utf-8-sig")), root)
+        except ValueError:
+            pass
+    if os.path.splitext(name)[1] in (".txt", ".srt", ".json"):
+        return _store_canon(data.decode("utf-8"), root)
+    return data
+
+
+def _store_tree(root: str) -> dict:
+    found = {}
+    for folder, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(folder, name)
+            with open(path, "rb") as handle:
+                found[os.path.relpath(path, root)] = _store_bytes(
+                    name, handle.read(), root)
+    return found
+
+
+def _zip_members(data: bytes, root: str) -> dict:
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(io.BytesIO(data)) as archive:
+        return {info.filename: _store_bytes(info.filename,
+                                            archive.read(info), root)
+                for info in archive.infolist()}
+
+
+def _seeded_wav(path: str, seconds: float, rate: int, seed: int) -> str:
+    """A seeded stereo 16-bit WAV: a tone under noise, a burst a beat."""
+    import wave
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    y = 0.2 * np.sin(2 * np.pi * 220.0 * t)[:, None] \
+        + rng.normal(0.0, 0.03, (t.size, 2))
+    y[(t % 0.5 < 0.02)] *= 3.0
+    pcm = (np.clip(y, -1, 1) * 32767).round().astype("<i2")
+    with wave.open(path, "wb") as handle:
+        handle.setnchannels(2)
+        handle.setsampwidth(2)
+        handle.setframerate(rate)
+        handle.writeframes(pcm.tobytes())
+    return path
+
+
+class _Twin:
+    """Phase 18's requests, each beside the in-process call of the same
+    function on a twin root: equal answers once each root reads
+    ``<root>`` and file times are left out."""
+
+    def __init__(self, srv: _Server, served: str, twin: str):
+        self.srv, self.served, self.twin = srv, served, twin
+
+    @staticmethod
+    def _fill(value, root: str):
+        return json.loads(json.dumps(value).replace("{root}", root))
+
+    def __call__(self, method: str, path: str, payload, fn, flat=True,
+                 status: int = 200):
+        # distinct file times, so the stores' mtime orderings never tie
+        time.sleep(0.012)
+        params = self._fill(payload, self.served)
+        if method == "GET":
+            _, body, _ = self.srv.call(method, path, params=params or None,
+                                       status=status)
+        else:
+            _, body, _ = self.srv.call(method, path, params, status=status)
+        try:
+            result = fn(self._fill(payload, self.twin))
+            want = {"ok": True, **result} if flat \
+                else {"ok": True, "result": result}
+        except Exception as exc:  # noqa: BLE001 — refusals are answers
+            want = {"ok": False, "error": str(exc)}
+        want = json.loads(json.dumps(want))
+        if _store_canon(body, self.served) != _store_canon(want, self.twin):
+            raise AssertionError(f"{method} {path}: {str(body)[:600]} "
+                                 f"!= in process {str(want)[:600]}")
+        return body
+
+
+def _builder_requests(srv: _Server, served: str, twin: str,
+                      media: dict) -> int:
+    """Phase 18's scenario by request, each request against its twin:
+    the request count."""
+    import shutil
+
+    import cv2
+
+    from vrgdg_tpu_torch.api import builder as mvb
+    from vrgdg_tpu_torch.api import instructions as instr
+    from vrgdg_tpu_torch.api import lora_dataset as lds
+    from vrgdg_tpu_torch.api import storyboard as sbd
+    from vrgdg_tpu_torch.api import text_files as tfl
+    from vrgdg_tpu_torch.api import video_editor as ved
+    from vrgdg_tpu_torch.server.routes import _remake_next
+
+    step = _Twin(srv, served, twin)
+    both = (served, twin)
+    builder = "/vrgdg/music_builder/"
+    project = "{root}/Chip Clip"
+    span = BUILDER_MIX[0] / BUILDER_SCENES
+    segments = [{"id": f"s{n}", "start": span * (n - 1), "end": span * n,
+                 "label": f"Scene {n}", "lyric_text": f"line {n}",
+                 "t2i_prompt": f"a wide shot {n}",
+                 "i2v_prompt": f"slow pan {n}", "timeline_note": f"note {n}"}
+                for n in range(1, BUILDER_SCENES + 1)]
+
+    # 1-2: the project and its 12-scene timeline over the 60 s mix
+    step("POST", builder + "new_project", {"project_name": "Chip Clip"},
+         lambda p: mvb.new_project(p, twin))
+    step("POST", builder + "save_session",
+         {"project_folder": project, "audio_path": media["mix"],
+          "session": {"segments": segments}},
+         lambda p: mvb.save_session(p, twin))
+    step("GET", builder + "list_projects", {},
+         lambda p: mvb.list_projects(twin, ""))
+    # 3: a 1080p scene image and reference from a data URL
+    for name, payload, fn in (
+            ("save_scene_image", {"scene_number": 3}, mvb.save_scene_image),
+            ("save_flux_reference_image",
+             {"reference_type": "subject", "name": "Hero"},
+             mvb.save_reference_image)):
+        step("POST", builder + name,
+             {"project_folder": project, "image_data": media["still_url"],
+              **payload}, fn)
+    # 4-5: scene audio, the 60 s timeline mix, a trim, the analysis
+    body = step("POST", builder + "save_scene_audio",
+                {"project_folder": project, "scene_number": 1,
+                 "source_path": media["scene_wav"]}, mvb.save_scene_audio)
+    scene_audio = body["saved_path"]
+    mixed = [dict(seg) for seg in segments]
+    mixed[0]["custom_audio_path"] = media["scene_wav"]
+    body = step("POST", builder + "prepare_scene_audio_mix",
+                {"project_folder": project, "segments": mixed,
+                 "global_audio_path": media["mix"]}, mvb.mix_scene_audio)
+    if abs(body["duration"] - BUILDER_MIX[0]) > 0.05 \
+            or body["scene_count"] != BUILDER_SCENES:
+        raise AssertionError(f"mix: {body['duration']} s, "
+                             f"{body['scene_count']} scenes")
+    step("POST", builder + "trim_scene_audio",
+         {"project_folder": project, "source_path": media["mix"],
+          "scene_number": 4, "start": 15.0, "duration": 5.0},
+         mvb.trim_scene_audio)
+    step("POST", builder + "analyze_audio", {"audio_path": media["mix"]},
+         lambda p: mvb.analyze_audio(p, twin))
+    step("POST", builder + "analyze_audio", {"audio_path": media["still"]},
+         lambda p: mvb.analyze_audio(p, twin), status=400)
+    # 6-7: the final frame by cv2 (no ffmpeg here), the scan, the restore
+    for root in both:
+        videos = os.path.join(root, "Chip Clip", "rendered_scene_videos")
+        os.makedirs(videos)
+        shutil.copyfile(media["clip"],
+                        os.path.join(videos, "video_0001-audio.mp4"))
+    body = step("POST", builder + "extract_video_final_frame",
+                {"project_folder": project, "scene_number": 1,
+                 "source_path": project
+                 + "/rendered_scene_videos/video_0001-audio.mp4"},
+                mvb.extract_final_frame)
+    if not np.array_equal(cv2.imread(body["saved_path"]),
+                          _decode(media["clip"])[-1]):
+        raise AssertionError("the final frame is not the clip's last frame")
+    step("POST", builder + "scan_scene_videos", {"project_folder": project},
+         lambda p: mvb.scan_scene_videos(p["project_folder"]))
+    step("POST", builder + "restore_scene_video",
+         {"project_folder": project, "scene_number": 1,
+          "source_path": media["take"]}, mvb.restore_scene_video)
+    _, served_audio, _ = srv.call("GET", builder + "audio",
+                                  params={"path": scene_audio})
+    with open(scene_audio, "rb") as handle:
+        if served_audio != handle.read():
+            raise AssertionError("the audio route served other bytes")
+    srv.call("GET", builder + "audio", params={"path": media["mix"]},
+             status=404)
+    # 9: the instruction store
+    base = {"project_folder": project, "key": "t2v", "scene_id": "s1"}
+    for name, payload, fn in (
+            ("get_instruction", base, instr.get_instruction),
+            ("save_instruction", {**base, "scope": "all_scenes",
+                                  "text": "every scene"},
+             instr.save_instruction),
+            ("save_instruction", {**base, "text": "only s1"},
+             instr.save_instruction),
+            ("reset_instruction", {**base, "scope": "scene"},
+             instr.reset_instruction),
+            ("save_instruction_preset", {"key": "krea2_t2i",
+                                         "name": "Look", "text": "body"},
+             lambda p: instr.save_preset(p, twin)),
+            ("list_instruction_presets", {"key": "zimage_t2i"},
+             lambda p: instr.list_presets(p, twin)),
+            ("load_instruction_preset", {"key": "ernie_t2i",
+                                         "name": "Look"},
+             lambda p: instr.load_preset(p, twin))):
+        step("POST", builder + name, payload, fn)
+    step("GET", builder + "instruction_keys", {}, lambda p: {"keys": [
+        {"key": key, "label": entry["label"],
+         "preset_group": instr.preset_group(key),
+         "preset_group_label": instr.preset_group_label(key)}
+        for key, entry in instr.REGISTRY.items()]})
+    # 8: the streamed export and the multipart import
+    _, exported, _ = srv.call("GET", builder + "export_project",
+                              params={"project_folder":
+                                      os.path.join(served, "Chip Clip")})
+    zip_path, _ = mvb.export_project(os.path.join(twin, "Chip Clip"))
+    try:
+        with open(zip_path, "rb") as handle:
+            if _zip_members(exported, served) != _zip_members(handle.read(),
+                                                             twin):
+                raise AssertionError("export_project: other ZIP members")
+        data, content_type = _multipart(
+            "project_zip", "chip.vrgdg.zip", exported,
+            fields={"project_name": "Imported"})
+        _, body, _ = srv.call("POST", builder + "import_project", data=data,
+                              headers={"Content-Type": content_type})
+        want = {"ok": True, **mvb.import_project(zip_path, "Imported", twin)}
+    finally:
+        os.remove(zip_path)
+    if _store_canon(body, served) != _store_canon(json.loads(json.dumps(
+            want)), twin):
+        raise AssertionError("import_project differs from in process")
+    # 10: text files, the audio library, the popup
+    step("POST", builder + "save_text_file",
+         {"path": "{root}/notes.txt", "content": "hello"}, tfl.save_text_file)
+    step("POST", builder + "load_text_file", {"path": "{root}/notes.txt"},
+         tfl.load_text_file)
+    for text in ("chapter one\n", "\nchapter two"):
+        step("POST", "/vrgdg/text_files/save_concat",
+             {"folder_name": "story", "file_name": "tale", "concat": True,
+              "text": text}, lambda p: tfl.save_text_concat(p, twin),
+             flat=False)
+    step("POST", "/vrgdg/text_files/save_advanced",
+         {"folder_name": "story", "file_name": "scene", "text": "one"},
+         lambda p: tfl.save_text_advanced(p, twin), flat=False)
+    step("GET", "/vrgdg/text_files/files", {"folder": "story"},
+         lambda p: tfl.list_folder_files("story", output_root=twin))
+    with open(media["scene_wav"], "rb") as handle:
+        wav_bytes = handle.read()
+    data, content_type = _multipart("audio", "Chip Song.wav", wav_bytes)
+    _, body, _ = srv.call("POST", "/vrgdg/audio/upload", data=data,
+                          headers={"Content-Type": content_type})
+    want = {"ok": True, **tfl.save_audio_upload("Chip Song.wav", wav_bytes,
+                                                False, twin)}
+    if _store_canon(body, served) != _store_canon(want, twin):
+        raise AssertionError("audio/upload differs from in process")
+    step("GET", "/vrgdg/audio/list", {}, lambda p: tfl.list_audio(twin))
+    step("POST", "/vrgdg/test_popup/save_text",
+         {"concept": "a city at dusk", "full_lyrics": "oh"},
+         lambda p: tfl.popup_save_text(p, twin))
+    step("GET", "/vrgdg/test_popup/config", {},
+         lambda p: tfl.popup_config(twin))
+    # storyboard
+    board = "{root}/board"
+    storyboard = {"projectVideoEngine": "ltx", "scenes": [
+        {"label": seg["label"], "image_prompt": seg["t2i_prompt"],
+         "video_prompt": "she sings to the camera", "lyrics": seg["lyric_text"]}
+        for seg in segments]}
+    step("POST", "/vrgdg/storyboard/load", {"project_folder": board},
+         lambda p: {"storyboard": sbd.load_storyboard(p)})
+    step("POST", "/vrgdg/storyboard/save",
+         {"project_folder": board, "storyboard": storyboard},
+         lambda p: {"storyboard": sbd.save_storyboard(p)})
+    step("POST", "/vrgdg/storyboard/import_reference_image",
+         {"project_folder": board, "kind": "location", "name": "Pier",
+          "image_data": media["still_url"]}, sbd.import_reference_image)
+    step("POST", "/vrgdg/storyboard/export_prompts",
+         {"project_folder": board, "storyboard": storyboard},
+         sbd.export_prompts)
+    # video editor and its remake queue
+    for root in both:
+        edit = os.path.join(root, "edit")
+        os.makedirs(edit)
+        for number in (1, 2, 3):
+            shutil.copyfile(media["clip"],
+                            os.path.join(edit, f"video_{number:04d}.mp4"))
+        with open(os.path.join(edit, "cut.srt"), "w",
+                  encoding="utf-8") as handle:
+            handle.write(mvb.segments_to_srt(segments[:3]))
+    edit = "{root}/edit"
+    session = {"project_folder": edit, "clips": {
+        f"video_{n:04d}.mp4": {"name": f"video_{n:04d}.mp4",
+                               "clip_number": n,
+                               "path": f"{edit}/video_{n:04d}.mp4",
+                               "selected_for_remake": n != 2}
+        for n in (1, 2, 3)}}
+
+    roots = (twin,)
+    step("POST", "/vrgdg/video_editor/list_clips", {"folder_path": edit},
+         lambda p: ved.list_clips(p["folder_path"], "", roots))
+    step("POST", "/vrgdg/video_editor/save_session",
+         {"folder_path": edit, "session": session},
+         lambda p: ved.save_session(p["folder_path"], p["session"],
+                                    roots))
+    step("POST", "/vrgdg/video_editor/save_frame",
+         {"folder_path": edit, "clip_name": "video_0002.mp4",
+          "frame_time": 0.5, "image_data": media["still_url"]},
+         lambda p: ved.save_frame(p, roots))
+    session_path = edit + "/vrgdg_temp/editor_session.json"
+    step("POST", "/vrgdg/video_editor/load_clip",
+         {"session_path": session_path, "clip_number": 3},
+         lambda p: ved.load_clip(p["session_path"], 3, ""))
+    for index in range(3):
+        body = step("POST", "/vrgdg/video_editor/remake/next",
+                    {"session_path": session_path,
+                     "srt_file": edit + "/cut.srt",
+                     "audio_path": media["mix"], "fps": 24,
+                     "audio_output": "{root}/remake_%d.wav" % index},
+                    _remake_next)
+    if body["is_valid"]:
+        raise AssertionError("the remake queue did not drain")
+    # LoRA dataset
+    dataset = "{root}/dataset"
+    step("POST", "/vrgdg/lora_dataset/save_pair",
+         {"dataset_folder": dataset, "index": 1, "image": media["still"],
+          "caption": "a red door"}, lds.save_pair)
+    step("POST", "/vrgdg/lora_dataset/save_ic_pair",
+         {"dataset_folder": dataset, "index": 1,
+          "reference": media["still"], "target": media["still_url"],
+          "instruction": "make it night"}, lds.save_ic_pair)
+    step("POST", "/vrgdg/lora_dataset/list", {"dataset_folder": dataset},
+         lds.list_dataset)
+    # the project's end, and a refusal outside the root
+    step("POST", builder + "delete_project",
+         {"project_folder": "{root}/Imported"},
+         lambda p: mvb.delete_project(p, twin))
+    step("POST", builder + "delete_project",
+         {"project_folder": media["folder"]},
+         lambda p: mvb.delete_project(p, twin), status=400)
+    return srv.calls
+
+
+def _builder_commands(folder: str, media: dict) -> dict:
+    """The ``builder`` and ``humo`` commands of ``vrgdg_tpu_torch.cli``
+    in this process; their seconds by action."""
+    import shutil
+
+    root = os.path.join(folder, "cli_root")
+    session = os.path.join(folder, "session.json")
+    span = BUILDER_MIX[0] / BUILDER_SCENES
+    with open(session, "w", encoding="utf-8") as handle:
+        json.dump({"segments": [{"id": f"c{n}", "start": span * (n - 1),
+                                 "end": span * n, "label": f"Scene {n}"}
+                                for n in range(1, BUILDER_SCENES + 1)]},
+                  handle)
+    project = os.path.join(root, "Cli Clip")
+    seconds = {}
+
+    def run(*argv):
+        started = time.perf_counter()
+        result = _cli_json(list(argv))
+        seconds[" ".join(argv[:2])] = round(time.perf_counter() - started, 3)
+        return result
+
+    run("builder", "new", "Cli Clip", "--output-root", root)
+    run("builder", "save", project, "--session", session, "--audio",
+        media["mix"], "--output-root", root)
+    listed = run("builder", "list", "--output-root", root)
+    loaded = run("builder", "load", project)
+    if [p["name"] for p in listed["projects"]] != ["Cli Clip"] \
+            or len(loaded["session"]["segments"]) != BUILDER_SCENES:
+        raise AssertionError(f"builder list/load: {listed} {loaded}")
+    run("builder", "scan", project)
+    analyzed = run("builder", "analyze", media["mix"], "--output-root", root)
+    scenes = os.path.join(folder, "segments.json")
+    with open(scenes, "w", encoding="utf-8") as handle:
+        json.dump([{"start": 0.0, "end": 2.0,
+                    "custom_audio_path": media["scene_wav"]},
+                   {"start": 2.0, "end": 3.0}], handle)
+    mixed = run("builder", "mix", project, "--session", scenes)
+    zip_path = os.path.join(folder, "cli.vrgdg.zip")
+    run("builder", "export", project, "-o", zip_path)
+    imported = run("builder", "import", zip_path, "--name", "Cli Back",
+                   "--output-root", root)
+    run("builder", "delete", imported["project_folder"], "--output-root",
+        root)
+    if abs(analyzed["duration"] - BUILDER_MIX[0]) > 0.05 \
+            or abs(mixed["duration"] - 3.0) > 0.05 \
+            or os.path.isdir(imported["project_folder"]):
+        raise AssertionError(f"builder analyze/mix/import: "
+                             f"{analyzed['duration']} {mixed['duration']} "
+                             f"{imported}")
+    plan = run("humo", "plan", media["mix"])
+    split = run("humo", "split-set", media["mix"], "-o",
+                os.path.join(folder, "set0"))
+    chunk = run("humo", "chunk", media["mix"], "--index", "1",
+                "--durations", "2,3.5,4", "-o", os.path.join(folder, "chunks"))
+    sets = os.path.join(folder, "sets")
+    os.makedirs(sets)
+    for index in (1, 2):
+        shutil.copyfile(media["clip"],
+                        os.path.join(sets, f"set{index}-audio.mp4"))
+    grid = run("humo", "grid", sets, "--labels", "one,two", "-o",
+               os.path.join(folder, "grid.mp4"))
+    final = run("humo", "final", sets, "--threshold", "2", "--audio",
+                media["mix"])
+    if len(split["segments"]) != 16 or not os.path.isfile(chunk["wav"]) \
+            or final.get("skipped") or grid["tiles"] != 2 \
+            or grid["frames"] != BUILDER_CLIP[0] or not plan:
+        raise AssertionError(f"humo: {split} {chunk} {final} {grid}")
+    return seconds
+
+
+def builder_phase(device) -> None:
+    """Phase 18: the host-only stores (builder, instruction store, text
+    and audio libraries, storyboard, video editor, LoRA dataset) by
+    request on the port's server with the card as its device, each
+    request beside the in-process call on a twin root, then the
+    ``builder`` and ``humo`` commands; none of the six kernels may
+    launch."""
+    import base64
+    import shutil
+
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder:
+        served = os.path.join(folder, "served")
+        twin = os.path.join(folder, "twin")
+        media_folder = os.path.join(folder, "media")
+        os.makedirs(twin)
+        os.makedirs(media_folder)
+        height, width = BUILDER_STILL
+        still = _still(os.path.join(media_folder, "still.png"), height,
+                       width, 1801)
+        with open(still, "rb") as handle:
+            still_url = "data:image/png;base64," + base64.b64encode(
+                handle.read()).decode()
+        seconds, rate = BUILDER_MIX
+        frames, fps, (clip_w, clip_h) = BUILDER_CLIP
+        media = {
+            "folder": media_folder, "still": still, "still_url": still_url,
+            "mix": _seeded_wav(os.path.join(media_folder, "mix.wav"),
+                               seconds, rate, 1802),
+            "scene_wav": _seeded_wav(os.path.join(media_folder, "scene.wav"),
+                                     5.0, rate, 1803),
+            "clip": _write_clip(os.path.join(media_folder, "scene.mp4"),
+                                frames, fps, clip_w, clip_h, 1804),
+            "take": _write_clip(os.path.join(media_folder, "take.mp4"),
+                                frames // 2, fps, clip_w, clip_h, 1805)}
+        srv = None
+        with _frozen_store_clocks(BUILDER_CLOCK):
+            try:
+                srv = _Server(device, served)
+                requests, counts = _counted(
+                    lambda: _builder_requests(srv, served, twin, media))
+            finally:
+                if srv is not None:
+                    srv.close()
+        _expect("builder requests", counts, {})
+        trees = _store_tree(served), _store_tree(twin)
+        if trees[0] != trees[1]:
+            names = sorted(set(trees[0]) ^ set(trees[1])) or sorted(
+                name for name in trees[0] if trees[0][name] != trees[1][name])
+            raise AssertionError(f"served and twin roots differ: {names[:8]}")
+        wavs = sum(name.endswith(".wav") for name in trees[0])
+        request_s = time.perf_counter() - started
+        command_seconds, counts = _counted(
+            lambda: _builder_commands(folder, media))
+        _expect("builder and humo commands", counts, {})
+        shutil.rmtree(served)
+    elapsed = time.perf_counter() - started
+    _say("builder", requests=requests, files=len(trees[0]), wavs=wavs,
+         vs_twin="equal", final_frame="cv2 last frame",
+         ffmpeg=f"'{shutil.which('ffmpeg') or 'absent'}'",
+         kernels="none launched", requests_s=f"{request_s:.2f}",
+         commands=json.dumps(command_seconds, separators=(",", ":")),
+         phase_s=f"{elapsed:.2f}", limit_s=BUILDER_LIMIT_S)
+    if elapsed > BUILDER_LIMIT_S:
+        raise AssertionError(f"phase 18 took {elapsed:.1f} s, over "
+                             f"{BUILDER_LIMIT_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2984,6 +3557,7 @@ def main() -> int:
                                       card).items():
         launches[name] = launches.get(name, 0) + count
     _add(launches, server_phase(device, kind))
+    builder_phase(device)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

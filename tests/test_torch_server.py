@@ -12,14 +12,18 @@ agree and two identical requests give the same bytes.
 """
 
 import asyncio
+import base64
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
 import time
 import urllib.request
+import zipfile
 
 import numpy as np
 import pytest
@@ -41,38 +45,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # route groups of the JAX server the port does not register yet, by path
 # prefix (in the order ROADMAP queues them)
 NOT_PORTED = (
-    "/vrgdg/music_builder/analyze_audio",
-    "/vrgdg/music_builder/import_capcut_beats",
-    "/vrgdg/music_builder/save_session", "/vrgdg/music_builder/save_",
-    "/vrgdg/music_builder/load_", "/vrgdg/music_builder/new_project",
-    "/vrgdg/music_builder/delete_project", "/vrgdg/music_builder/archive_",
-    "/vrgdg/music_builder/extract_", "/vrgdg/music_builder/import_reference",
-    "/vrgdg/music_builder/trim_scene_audio",
-    "/vrgdg/music_builder/prepare_scene_audio_mix",
-    "/vrgdg/music_builder/scan_scene_videos",
-    "/vrgdg/music_builder/restore_scene_video",
-    "/vrgdg/music_builder/project_prompt_creator_paths",
-    "/vrgdg/music_builder/import_latest_prompt_creator_outputs",
-    "/vrgdg/music_builder/copy_prompt_creator_outputs",
-    "/vrgdg/music_builder/get_instruction",
-    "/vrgdg/music_builder/reset_instruction",
-    "/vrgdg/music_builder/list_instruction_presets",
-    "/vrgdg/music_builder/instruction_keys",
-    "/vrgdg/music_builder/list_projects",
-    "/vrgdg/music_builder/model_defaults",
-    "/vrgdg/music_builder/default_", "/vrgdg/music_builder/audio",
-    "/vrgdg/music_builder/export_project",
-    "/vrgdg/music_builder/import_project",
     "/vrgdg/workflow_runner/", "/vrgdg/krea2_studio/",
-    "/vrgdg/music_prompt_creator/", "/vrgdg/lyrics/", "/vrgdg/llm_batches/",
-    "/vrgdg/video_editor/", "/vrgdg/start_storyboard/", "/vrgdg/storyboard/",
-    "/vrgdg/text_files/", "/vrgdg/audio/", "/vrgdg/part2/",
-    "/vrgdg/test_popup/", "/vrgdg/text_tools/", "/vrgdg/lora_dataset/",
+    "/vrgdg/music_prompt_creator/", "/vrgdg/start_storyboard/",
+    "/vrgdg/text_tools/", "/vrgdg/lyrics/", "/vrgdg/llm_batches/",
     "/vrgdg/graph/")
-
-# a ported path that starts with a prefix of NOT_PORTED (the builder's
-# audio route)
-PORTED_AUDIO = ("/vrgdg/music_builder/audio/peaks",)
 
 # timings, the device, and the byte size of encoded files (their pixels
 # may differ by a level)
@@ -203,14 +179,14 @@ def pair(tmp_path):
 _STAMP = re.compile(r"\d{8}_\d{6}|\d{10,}|[0-9a-f]{8,32}")
 
 
-def _norm(value, roots):
+def _norm(value, roots, volatile=VOLATILE):
     """Paths relative to the client's folder, stamps and ids blanked,
     volatile keys dropped."""
     if isinstance(value, dict):
-        return {k: _norm(v, roots) for k, v in value.items()
-                if k not in VOLATILE}
+        return {k: _norm(v, roots, volatile) for k, v in value.items()
+                if k not in volatile}
     if isinstance(value, list):
-        return [_norm(v, roots) for v in value]
+        return [_norm(v, roots, volatile) for v in value]
     if isinstance(value, str):
         for root, tag in roots:
             value = value.replace(root, tag)
@@ -234,7 +210,7 @@ def _differences(ours, theirs, where=""):
     return [] if ours == theirs else [(where, ours, theirs)]
 
 
-def _agree(jax_reply, port_reply, tmp_path, shared=()):
+def _agree(jax_reply, port_reply, tmp_path, shared=(), volatile=VOLATILE):
     """Both replies' status, ok and normalized JSON; ``shared`` lists
     folders both clients read from."""
     (j_status, j_body), (p_status, p_body) = jax_reply, port_reply
@@ -245,11 +221,13 @@ def _agree(jax_reply, port_reply, tmp_path, shared=()):
     roots = [(str(tmp_path / "jax"), "<base>"), (str(tmp_path / "port"),
                                                   "<base>")]
     roots += [(folder, "<shared>") for folder in shared]
-    differences = _differences(_norm(p_body, roots), _norm(j_body, roots))
+    differences = _differences(_norm(p_body, roots, volatile),
+                               _norm(j_body, roots, volatile))
     assert not differences, differences
 
 
-def both(clients, tmp_path, method, path, shared=(), **kwargs):
+def both(clients, tmp_path, method, path, shared=(), volatile=VOLATILE,
+         **kwargs):
     """Send one request to both servers; ``kwargs`` may hold ``{base}`` in
     string values of ``json_body``, replaced per client."""
     replies = {}
@@ -260,7 +238,7 @@ def both(clients, tmp_path, method, path, shared=(), **kwargs):
                 "{base}", str(tmp_path / name)))
         replies[name] = client.request(
             method, path, **{**kwargs, "json_body": body})
-    _agree(replies["jax"], replies["port"], tmp_path, shared)
+    _agree(replies["jax"], replies["port"], tmp_path, shared, volatile)
     return replies["jax"], replies["port"]
 
 
@@ -314,7 +292,7 @@ def _routes(app):
 
 
 def _ported(path):
-    return path in PORTED_AUDIO or not path.startswith(NOT_PORTED)
+    return not path.startswith(NOT_PORTED)
 
 
 def test_route_table_equals_the_jax_groups_it_ports():
@@ -322,9 +300,12 @@ def test_route_table_equals_the_jax_groups_it_ports():
     port_table = _routes(tserver.create_app(device="cpu"))
     assert port_table == {r for r in jax_table if _ported(r[1])}
     left_out = {r for r in jax_table if not _ported(r[1])}
-    # every group left out is host-only, and none of them is half ported
-    assert len(left_out) == len(jax_table) - len(port_table) > 100
+    # every group left out is host-only, none of them is half ported, and
+    # each prefix still listed names a JAX route the port lacks
+    assert len(left_out) == len(jax_table) - len(port_table) > 60
     assert not any(path == r[1] for r in left_out for _, path in port_table)
+    assert all(any(r[1].startswith(prefix) for r in left_out)
+               for prefix in NOT_PORTED)
 
 
 def test_panel_routes_of_the_ported_groups_are_registered():
@@ -361,7 +342,7 @@ def test_catalog_health_and_ui(pair):
     assert status == 404
     # a group not ported yet, and a method a route does not take
     assert clients["port"].request(
-        "GET", "/vrgdg/music_builder/list_projects")[0] == 404
+        "GET", "/vrgdg/music_prompt_creator/list_drafts")[0] == 404
     assert clients["port"].request("GET", "/vrgdg/compare/video")[0] == 405
 
 
@@ -785,6 +766,399 @@ def test_audio_routes(pair, media):
                           "/vrgdg/music_builder/beats/analyze",
                           json_body={})
     assert status == 400
+
+
+# --------------------------------------------------------------------------
+# the host-only stores: builder, text files, storyboard, editor, LoRA
+# --------------------------------------------------------------------------
+
+# the file-system times in the stores' answers (their clocks are frozen)
+STORE_VOLATILE = VOLATILE | {"updated", "modified"}
+
+
+@pytest.fixture()
+def stores(pair, media, monkeypatch):
+    """The pair with both packages' store clocks frozen at one instant
+    (so time-stamped backups get the same names on both sides), an empty
+    CapCut home, and seeded media the stores read."""
+    from tests.test_torch_builder import PAIRS, freeze_clocks
+
+    freeze_clocks(monkeypatch, [m for pair_ in PAIRS for m in pair_])
+    clients, tmp = pair
+    monkeypatch.setenv("LOCALAPPDATA", str(tmp / "capcut_home"))
+    folder = tmp / "store_media"
+    folder.mkdir()
+    ok, png = cv2.imencode(".png", cv2.imread(media["still"]))
+    assert ok
+    data_url = "data:image/png;base64," + base64.b64encode(
+        png.tobytes()).decode()
+    with open(media["wav"], "rb") as handle:
+        wav_bytes = handle.read()
+    return clients, tmp, {"data_url": data_url, "wav_bytes": wav_bytes,
+                          "shared": (media["folder"], str(folder)),
+                          "folder": str(folder)}
+
+
+def store_call(clients, tmp, method, path, shared, **kwargs):
+    return both(clients, tmp, method, path, shared=shared,
+                volatile=STORE_VOLATILE, **kwargs)
+
+
+def test_builder_routes_agree(stores, media):
+    clients, tmp, extra = stores
+    shared = extra["shared"]
+
+    def call(method, path, **kwargs):
+        time.sleep(0.012)  # distinct file times for the mtime orderings
+        return store_call(clients, tmp, method, path, shared, **kwargs)
+
+    def post(name, payload):
+        return call("POST", "/vrgdg/music_builder/" + name,
+                    json_body=payload)
+
+    project = "{base}/Http Clip"
+    segments = [{"id": f"s{n}", "start": 1.5 * (n - 1), "end": 1.5 * n,
+                 "label": f"Scene {n}", "lyric_text": f"line {n}",
+                 "t2i_prompt": f"shot {n}", "timeline_note": f"note {n}"}
+                for n in range(1, 5)]
+    (_, body), _ = post("new_project", {"project_name": "Http Clip"})
+    assert body["ok"] and body["project_folder"].endswith("Http Clip")
+    (_, body), _ = post("save_session", {
+        "project_folder": project, "audio_path": media["wav"],
+        "session": {"segments": segments}})
+    assert body["ok"]
+    post("save_session", {"project_folder": project,
+                          "session": {"segments": segments}})
+    post("load_session", {"project_folder": project})
+    post("save_project_as", {"project_folder": project,
+                             "project_name": "Http Copy",
+                             "session": {"segments": segments[:2]}})
+    for path in ("list_projects", "model_defaults", "default_context_paths",
+                 "default_audio_srt_paths", "instruction_keys"):
+        (_, body), _ = call("GET", "/vrgdg/music_builder/" + path)
+        assert body["ok"], (path, body)
+    assert len(body["keys"]) > 10
+    (_, body), _ = post("save_scene_image", {
+        "project_folder": project, "scene_number": 2,
+        "image_data": extra["data_url"]})
+    assert body["saved_path"].endswith("image_0002.png")
+    post("archive_scene_image", {"project_folder": project,
+                                 "scene_number": 2,
+                                 "source_path": media["still"]})
+    post("save_flux_reference_image", {
+        "project_folder": project, "reference_type": "location",
+        "name": "Pier", "image_data": extra["data_url"]})
+    post("import_reference_subjects", {"project_folder": project})
+    post("import_reference_locations", {"project_folder": project})
+    (_, body), _ = post("save_scene_audio", {
+        "project_folder": project, "scene_number": 1,
+        "source_path": media["wav"]})
+    scene_audio = body["saved_path"]
+    post("save_project_audio", {"project_folder": project,
+                                "audio_name": "mix.m4a",
+                                "source_path": media["wav"]})
+    (_, body), _ = post("prepare_scene_audio_mix", {
+        "project_folder": project,
+        "segments": [{**segments[0], "custom_audio_path": media["wav"]},
+                     *segments[1:]],
+        "global_audio_path": media["wav"]})
+    assert body["ok"] and body["scene_count"] == 4
+    post("prepare_scene_audio_mix", {"project_folder": project,
+                                     "segments": segments})
+    post("trim_scene_audio", {"project_folder": project,
+                              "source_path": media["wav"],
+                              "scene_number": 2, "start": 0.5,
+                              "duration": 1.75})
+    (_, body), _ = post("analyze_audio", {"audio_path": media["wav"],
+                                          "target_peaks": 200})
+    assert body["ok"] and len(body["peaks"]) == 200
+    post("analyze_audio", {"audio_path": media["still"]})
+    post("import_capcut_beats", {"audio_duration": 10})
+    post("save_project_srt", {"project_folder": project,
+                              "srt_text": "1\n00:00:00,000 --> "
+                                          "00:00:02,500\nHello\n"})
+    post("save_single_scene_srt", {"project_folder": project,
+                                   "scene_number": 3, "start_time": 3.0,
+                                   "duration": 1.5, "label": "Bridge"})
+    post("load_srt", {"srt_path": project + "/builder_segments.srt"})
+    post("load_prompt_json", {"path": project + "/missing.json"})
+    post("save_render_log", {"project_folder": project,
+                             "log": {"id": "r1", "status": "complete"}})
+    post("save_wizard_draft", {"project_folder": project,
+                               "draft": {"step": 1}, "lyrics": "la"})
+    post("load_wizard_draft", {"project_folder": project})
+    post("project_prompt_creator_paths", {"project_folder": project})
+    post("import_latest_prompt_creator_outputs", {"project_folder": project})
+    post("copy_prompt_creator_outputs", {
+        "project_folder": project, "source_project_folder": "{base}/none"})
+
+    # scene videos: the final frame, the scan, the restore
+    for name in ("jax", "port"):
+        videos = tmp / name / "Http Clip" / "rendered_scene_videos"
+        videos.mkdir()
+        shutil.copyfile(media["clip"], videos / "video_0001-audio.mp4")
+    (_, body), _ = post("extract_video_final_frame", {
+        "project_folder": project, "scene_number": 1,
+        "source_path": project + "/rendered_scene_videos/"
+                                 "video_0001-audio.mp4"})
+    assert body["ok"] and body["saved_path"].endswith(".png")
+    post("scan_scene_videos", {"project_folder": project})
+    post("restore_scene_video", {"project_folder": project,
+                                 "scene_number": 1,
+                                 "source_path": media["other"]})
+    post("delete_project_media", {"project_folder": project,
+                                  "path": body["saved_path"].replace(
+                                      str(tmp / "jax"), "{base}")})
+
+    # the instruction store
+    base = {"project_folder": project, "key": "t2v", "scene_id": "s1"}
+    post("get_instruction", base)
+    post("save_instruction", {**base, "scope": "all_scenes", "text": "all"})
+    post("save_instruction", {**base, "text": "one"})
+    post("reset_instruction", {**base, "scope": "scene"})
+    post("save_instruction_preset", {"key": "krea2_t2i", "name": "Look",
+                                     "text": "body"})
+    post("list_instruction_presets", {"key": "zimage_t2i"})
+    post("load_instruction_preset", {"key": "ernie_t2i", "name": "Look"})
+
+    # the audio route: the managed root only, audio only
+    for name, client in clients.items():
+        path = scene_audio.replace(str(tmp / "jax"), str(tmp / name))
+        status, served = client.request(
+            "GET", "/vrgdg/music_builder/audio", params={"path": path})
+        with open(path, "rb") as handle:
+            assert status == 200 and served == handle.read()
+    for path in (media["wav"], "{base}/Http Clip/vrgdg_builder_session.json"):
+        status = [client.request(
+            "GET", "/vrgdg/music_builder/audio",
+            params={"path": path.replace("{base}", str(tmp / name))})[0]
+            for name, client in clients.items()]
+        assert status[0] == status[1] in (400, 404)
+    # beside it, the peaks route it is a prefix of
+    (_, body), _ = call("POST", "/vrgdg/music_builder/audio/peaks",
+                        json_body={"path": media["wav"],
+                                   "target_peaks": 50})
+    assert body["ok"]
+
+    # the streamed export, then the multipart import of each one's ZIP
+    members = {}
+    for name, client in clients.items():
+        status, data = client.request(
+            "GET", "/vrgdg/music_builder/export_project",
+            params={"project_folder": str(tmp / name / "Http Clip")})
+        assert status == 200 and data[:2] == b"PK"
+        with zipfile.ZipFile(io.BytesIO(data)) as archive:
+            members[name] = {
+                info.filename: archive.read(info).replace(
+                    str(tmp / name).encode(), b"<base>")
+                for info in archive.infolist()}
+        data_zip, content_type = _multipart([
+            ("project_name", None, b"Back Again"),
+            ("project_zip", "pack.vrgdg.zip", data)])
+        members[name + " import"] = client.request(
+            "POST", "/vrgdg/music_builder/import_project", data=data_zip,
+            headers={"Content-Type": content_type})
+    assert sorted(members["port"]) == sorted(members["jax"])
+    for member, content in members["jax"].items():
+        if member.endswith(".json"):
+            assert _norm(json.loads(members["port"][member]), [],
+                         STORE_VOLATILE) == _norm(json.loads(content), [],
+                                                  STORE_VOLATILE), member
+        else:
+            assert members["port"][member] == content, member
+    _agree(members["jax import"], members["port import"], tmp,
+           shared, STORE_VOLATILE)
+    assert members["port import"][1]["ok"]
+    # no ZIP part, a cross-site export, a missing project
+    data, content_type = _multipart([("project_name", None, b"x")])
+    (status, _), _ = call("POST", "/vrgdg/music_builder/import_project",
+                          data=data, headers={"Content-Type": content_type})
+    assert status == 400
+    (status, _), _ = call("GET", "/vrgdg/music_builder/export_project",
+                          params={"project_folder": str(tmp / "nowhere")},
+                          headers={"Origin": "http://evil.example"})
+    assert status == 403
+    (status, _), _ = call("GET", "/vrgdg/music_builder/export_project",
+                          params={"project_folder": str(tmp / "nowhere")})
+    assert status == 404
+    post("delete_project", {"project_folder": "{base}/Http Copy"})
+    post("delete_project", {"project_folder": media["folder"]})
+    for name in ("Http Clip", "Back Again"):
+        assert _tree_bytes(tmp / "port" / name, tmp / "port") == \
+            _tree_bytes(tmp / "jax" / name, tmp / "jax")
+
+
+def _tree_bytes(folder, base):
+    """``{relative name: bytes}`` with the base folder's path blanked and
+    session JSON's times dropped."""
+    found = {}
+    for root, _, names in os.walk(folder):
+        for name in names:
+            path = os.path.join(root, name)
+            with open(path, "rb") as handle:
+                data = handle.read().replace(str(base).encode(), b"<base>")
+            if name.endswith(".json"):
+                data = _norm(json.loads(data), [], STORE_VOLATILE)
+            found[os.path.relpath(path, folder)] = data
+    return found
+
+
+def test_text_storyboard_editor_and_lora_routes_agree(stores, media):
+    clients, tmp, extra = stores
+    shared = extra["shared"]
+
+    def call(method, path, **kwargs):
+        time.sleep(0.012)
+        return store_call(clients, tmp, method, path, shared, **kwargs)
+
+    # text files and the audio library
+    (_, body), _ = call("POST", "/vrgdg/music_builder/save_text_file",
+                        json_body={"path": "{base}/notes.txt",
+                                   "content": "hello"})
+    assert body["ok"]
+    (_, body), _ = call("POST", "/vrgdg/music_builder/load_text_file",
+                        json_body={"path": "{base}/notes.txt"})
+    assert body["content"] == "hello"
+    call("POST", "/vrgdg/music_builder/save_text_file",
+         json_body={"path": "{base}/x.sh", "content": "x"})
+    (_, body), _ = call("POST", "/vrgdg/text_files/save_advanced",
+                        json_body={"folder_name": "story",
+                                   "file_name": "scene", "text": "one"})
+    assert body["result"]["file_path"].endswith("scene_001.txt")
+    for text in ("chapter one\n", "\nchapter two"):
+        (_, body), _ = call("POST", "/vrgdg/text_files/save_concat",
+                            json_body={"folder_name": "story",
+                                       "file_name": "tale", "concat": True,
+                                       "text": text})
+    assert body["result"]["json"] == {"Prompt1": "chapter one",
+                                      "Prompt2": "chapter two"}
+    call("GET", "/vrgdg/text_files/list", params={"category": "scene2"})
+    call("GET", "/vrgdg/text_files/folders")
+    for params in ({"folder": "story"},
+                   {"folder": "story", "use_most_recent": "true"},
+                   {"folder": "story", "use_custom_base_path": "yes",
+                    "custom_base_path": extra["folder"]}):
+        call("GET", "/vrgdg/text_files/files", params=params)
+    call("GET", "/vrgdg/part2/load_concept_prompts")
+    for overwrite in (b"false", b"false", b"on"):
+        data, content_type = _multipart([
+            ("overwrite", None, overwrite),
+            ("audio", "My Song!.wav", extra["wav_bytes"])])
+        (_, body), _ = call("POST", "/vrgdg/audio/upload", data=data,
+                            headers={"Content-Type": content_type})
+    assert body["ok"] and body["files"] == ["My Song (1).wav",
+                                            "My Song.wav"]
+    data, content_type = _multipart([("overwrite", None, b"1")])
+    (status, _), _ = call("POST", "/vrgdg/audio/upload", data=data,
+                          headers={"Content-Type": content_type})
+    assert status == 400
+    call("GET", "/vrgdg/audio/list")
+    call("GET", "/vrgdg/test_popup/config")
+    (_, body), _ = call("POST", "/vrgdg/test_popup/save_text",
+                        json_body={"full_lyrics": "oh", "concept": "dusk"})
+    assert body["ok"]
+    data, content_type = _multipart([("audio", "drop.wav",
+                                      extra["wav_bytes"])])
+    call("POST", "/vrgdg/test_popup/upload_audio", data=data,
+         headers={"Content-Type": content_type})
+    call("GET", "/vrgdg/part2/load_concept_prompts")
+
+    # storyboard
+    board = "{base}/board"
+    call("POST", "/vrgdg/storyboard/load",
+         json_body={"project_folder": board, "cameraMotionSpeed": 9})
+    (_, body), _ = call("POST", "/vrgdg/storyboard/save", json_body={
+        "project_folder": board, "storyboard": {
+            "projectVideoEngine": "ltx",
+            "scenes": [{"label": "Open", "image_prompt": "dawn",
+                        "video_prompt": "she sings to the camera"}]}})
+    assert body["ok"] and body["storyboard"]["scenes"][0]["label"] == "Open"
+    call("POST", "/vrgdg/storyboard/import_reference_image", json_body={
+        "project_folder": board, "kind": "subject", "name": "Ann",
+        "image_data": extra["data_url"]})
+    call("POST", "/vrgdg/storyboard/import_reference_image",
+         json_body={"project_folder": board, "kind": "subject"})
+    call("POST", "/vrgdg/storyboard/export_prompts", json_body={
+        "project_folder": board, "storyboard": {"scenes": [
+            {"label": "One", "image_prompt": "a red door",
+             "video_prompt": "door opens"}]}})
+
+    # video editor, with the remake queue drained
+    for name in ("jax", "port"):
+        edit = tmp / name / "edit"
+        edit.mkdir()
+        for number in (1, 2):
+            shutil.copyfile(media["clip"], edit / f"video_{number:04d}.mp4")
+        (edit / "cut.srt").write_text(
+            "1\n00:00:00,000 --> 00:00:00,500\nA\n\n"
+            "2\n00:00:00,500 --> 00:00:01,000\nB\n")
+    edit = "{base}/edit"
+    (_, body), _ = call("POST", "/vrgdg/video_editor/list_clips",
+                        json_body={"folder_path": edit})
+    assert len(body["clips"]) == 2
+    session = {"project_folder": edit, "clips": {
+        f"video_{n:04d}.mp4": {"name": f"video_{n:04d}.mp4",
+                               "clip_number": n,
+                               "path": f"{edit}/video_{n:04d}.mp4",
+                               "selected_for_remake": n == 2}
+        for n in (1, 2)}}
+    call("POST", "/vrgdg/video_editor/save_session",
+         json_body={"folder_path": edit, "session": session})
+    call("POST", "/vrgdg/video_editor/load_session",
+         json_body={"folder_path": edit})
+    (_, body), _ = call("POST", "/vrgdg/video_editor/save_frame",
+                        json_body={"folder_path": edit,
+                                   "clip_name": "video_0001.mp4",
+                                   "frame_time": 0.25,
+                                   "image_data": extra["data_url"]})
+    frame = body["frame_path"]
+    call("POST", "/vrgdg/video_editor/load_clip",
+         json_body={"session_path": edit + "/vrgdg_temp/editor_session.json",
+                    "clip_number": 2})
+    for _ in range(2):
+        (_, body), _ = call("POST", "/vrgdg/video_editor/remake/next",
+                            json_body={
+                                "session_path":
+                                    edit + "/vrgdg_temp/editor_session.json",
+                                "srt_file": edit + "/cut.srt",
+                                "audio_path": media["wav"], "fps": 24,
+                                "audio_output": "{base}/remake.wav"})
+    assert body["ok"] and body["is_valid"] is False
+    with open(tmp / "port" / "remake.wav", "rb") as a, \
+            open(tmp / "jax" / "remake.wav", "rb") as b:
+        assert a.read() == b.read()
+    for name, client in clients.items():
+        mine = frame.replace(str(tmp / "jax"), str(tmp / name))
+        status, served = client.request(
+            "GET", "/vrgdg/video_editor/image", params={"path": mine})
+        with open(mine, "rb") as handle:
+            assert status == 200 and served == handle.read()
+        status, served = client.request(
+            "GET", "/vrgdg/video_editor/video",
+            params={"path": str(tmp / name / "edit" / "video_0001.mp4")})
+        assert status == 200 and served[4:8] == b"ftyp"
+    for path, route in ((media["clip"], "video"), (frame, "video"),
+                        ("/etc/passwd", "image")):
+        (status, _), _ = call("GET", f"/vrgdg/video_editor/{route}",
+                              params={"path": path.replace(
+                                  str(tmp / "jax"), str(tmp))})
+        assert status in (400, 404)
+
+    # LoRA dataset
+    dataset = "{base}/dataset"
+    (_, body), _ = call("POST", "/vrgdg/lora_dataset/save_pair", json_body={
+        "dataset_folder": dataset, "index": 1, "image": media["still"],
+        "caption": "cap"})
+    assert body["ok"] and body["image_path"].endswith("image_001.png")
+    call("POST", "/vrgdg/lora_dataset/save_ic_pair", json_body={
+        "dataset_folder": dataset, "index": 2, "reference": media["still"],
+        "target": extra["data_url"], "instruction": "make it night"})
+    call("POST", "/vrgdg/lora_dataset/list",
+         json_body={"dataset_folder": dataset})
+    call("POST", "/vrgdg/lora_dataset/save_pair",
+         json_body={"dataset_folder": ""})
+    assert _tree_bytes(tmp / "port", tmp / "port") == \
+        _tree_bytes(tmp / "jax", tmp / "jax")
 
 
 def test_route_error_paths(pair, media):

@@ -23,6 +23,9 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
   beats    — beat & impact analysis -> beat_data JSON (host numpy)
   scene-srt — beat-aligned scene durations -> SRT (host)
   audio    — waveform toolkit: split, srt-split, delay, peaks (host)
+  builder  — music video builder project store: new, list, load, save,
+             delete, export, import, scan, analyze, mix (host)
+  humo     — HuMo set pipeline: plan, split-set, chunk, final, grid (host)
   serve    — the HTTP API server (``vrgdg_tpu_torch.server``) on the device
 
 ``--device`` defaults to ``cuda``; on a machine without a card the command
@@ -34,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -224,6 +228,131 @@ def _audio(args) -> None:
                 "samples": int(delayed["waveform"].shape[-1])})
 
 
+def _builder(args) -> None:
+    from .api import builder as mvb
+    root = args.output_root or None
+
+    def _read_json_arg(path, label):
+        if not path:
+            raise SystemExit(f"--session with a {label} JSON file "
+                             "is required for this action")
+        with open(path, "r", encoding="utf-8-sig") as handle:
+            return json.load(handle)
+
+    if args.action == "new":
+        payload = {"project_name": args.name or args.target}
+        if os.path.isabs(args.target):
+            payload["project_folder"] = args.target
+        _print(mvb.new_project(payload, root))
+    elif args.action == "list":
+        _print(mvb.list_projects(root))
+    elif args.action == "load":
+        _print(mvb.load_session(args.target))
+    elif args.action == "save":
+        if args.session:
+            session = _read_json_arg(args.session, "session")
+        else:
+            # no --session: keep the existing timeline instead of
+            # overwriting it with an empty one (e.g. when only attaching
+            # audio)
+            try:
+                session = mvb.load_session(args.target)["session"]
+            except (FileNotFoundError, ValueError):
+                session = {"segments": []}
+        _print(mvb.save_session(
+            {"project_folder": args.target, "project_name": args.name,
+             "audio_path": args.audio, "session": session}, root))
+    elif args.action == "delete":
+        _print(mvb.delete_project({"project_folder": args.target}, root))
+    elif args.action == "export":
+        zip_path, download_name = mvb.export_project(args.target)
+        destination = args.output or download_name
+        shutil.move(zip_path, destination)
+        _print({"zip_path": os.path.abspath(destination),
+                "download_name": download_name})
+    elif args.action == "import":
+        _print(mvb.import_project(args.target, args.name, root))
+    elif args.action == "scan":
+        _print(mvb.scan_scene_videos(args.target))
+    elif args.action == "analyze":
+        _print(mvb.analyze_audio({"audio_path": args.target}, root))
+    elif args.action == "mix":
+        segments = _read_json_arg(args.session, "segments")
+        _print(mvb.mix_scene_audio(
+            {"project_folder": args.target, "segments": segments,
+             "allow_missing_scene_audio": True}))
+
+
+def _humo(args) -> None:
+    from .runtime import audio_toolkit as atk
+    from .runtime import video_io as vio
+
+    if args.action == "plan":
+        audio = atk.load_audio(args.target)
+        _print(atk.calculate_wan22_sets(
+            audio, index=args.index,
+            scene_duration_seconds=args.scene_duration))
+    elif args.action == "split-set":
+        audio = atk.load_audio(args.target)
+        result = atk.split_audio_humo_set(audio, set_index=args.index)
+        out_dir = args.output or os.path.join(
+            os.path.dirname(os.path.abspath(args.target)),
+            f"humo_set_{args.index:03d}")
+        os.makedirs(out_dir, exist_ok=True)
+        paths = [atk.save_wav(os.path.join(out_dir, f"audio_{pos + 1}.wav"),
+                              seg)
+                 for pos, seg in enumerate(result["segments"])]
+        with open(os.path.join(out_dir, "meta.json"), "w",
+                  encoding="utf-8") as handle:
+            json.dump(result["meta"], handle, indent=2)
+        _print({"folder": out_dir, "segments": paths,
+                "total_duration": result["total_duration"]})
+    elif args.action == "chunk":
+        audio = atk.load_audio(args.target)
+        durations = atk.parse_duration_list(args.durations) \
+            if args.durations else None
+        result = atk.split_general_chunk(
+            audio, chunk_index=args.index,
+            scene_duration_seconds=args.scene_duration, fps=args.fps,
+            use_humo_alignment=args.humo_align, durations=durations)
+        out_dir = args.output or os.path.dirname(os.path.abspath(args.target))
+        os.makedirs(out_dir, exist_ok=True)
+        wav = atk.save_wav(os.path.join(out_dir,
+                                        f"chunk_{args.index:04d}.wav"),
+                           result.pop("audio"))
+        _print({"wav": wav, **{key: result[key] for key in
+                               ("chunk_index", "total_sets",
+                                "frames_per_scene", "frames_for_ltx",
+                                "preroll_frames", "start_time",
+                                "end_time")}})
+    elif args.action == "final":
+        audio = atk.load_audio(args.audio) if args.audio else None
+        _print(vio.assemble_final_video(args.target, audio=audio,
+                                        threshold=args.threshold,
+                                        redo=args.redo))
+    elif args.action == "grid":
+        if os.path.isdir(args.target):
+            sources = vio.find_grid_videos(args.target)
+        else:
+            sources = [part for part in args.target.split(",")
+                       if part.strip()]
+        labels = [part.strip() for part in args.labels.split(",")] \
+            if args.labels else None
+        frames = vio.render_video_grid(sources, labels=labels)
+        out_path = args.output or os.path.join(
+            args.target if os.path.isdir(args.target) else ".",
+            "video_grid.mp4")
+        writer = vio.VideoWriter(out_path, args.grid_fps, frames.shape[2],
+                                 frames.shape[1])
+        try:
+            for frame in vio.array_to_frames(frames):
+                writer.write_bgr(frame)
+        finally:
+            writer.close()
+        _print({"output": os.path.abspath(out_path),
+                "frames": int(frames.shape[0]), "tiles": len(sources)})
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="vrgdg-tpu-torch",
@@ -397,6 +526,52 @@ def main(argv=None):
     p.add_argument("--delay-ms", type=float, default=40.0)
     p.add_argument("--target-peaks", type=int, default=600)
 
+    p = sub.add_parser("builder", help="music video builder project store")
+    p.add_argument("action", choices=["new", "list", "load", "save",
+                                      "delete", "export", "import", "scan",
+                                      "analyze", "mix"])
+    p.add_argument("target", nargs="?", default="",
+                   help="project folder (most actions), ZIP path "
+                        "(import), or audio path (analyze)")
+    p.add_argument("--name", default="", help="project name (new / import)")
+    p.add_argument("--session", default="",
+                   help="JSON file with the session dict (save) or the "
+                        "scene segments list (mix)")
+    p.add_argument("--audio", default="", help="project audio path (save)")
+    p.add_argument("-o", "--output", default="",
+                   help="destination ZIP path (export)")
+    p.add_argument("--output-root", default="",
+                   help="managed projects root (defaults to "
+                        "VRGDG_TPU_OUTPUT)")
+
+    p = sub.add_parser("humo", help="HuMo set pipeline (plan/split/final/grid)")
+    p.add_argument("action", choices=["plan", "split-set", "chunk", "final",
+                                      "grid"])
+    p.add_argument("target",
+                   help="audio file (plan, split-set, chunk) / set folder "
+                        "(final) / video folder (grid)")
+    p.add_argument("--index", type=int, default=0,
+                   help="set or chunk index")
+    p.add_argument("--scene-duration", type=float, default=4.0)
+    p.add_argument("--fps", type=int, default=24)
+    p.add_argument("--humo-align", action="store_true",
+                   help="4N+1 frame quantization (requires fps 25)")
+    p.add_argument("--durations", default="",
+                   help='custom scene durations, e.g. "2,3.5,4" (chunk)')
+    p.add_argument("--threshold", type=int, default=3,
+                   help="set finals required before assembly (final)")
+    p.add_argument("--audio", default="",
+                   help="original mix to lay under the final video")
+    p.add_argument("--redo", action="store_true",
+                   help="rerun mode: bypass the threshold, write "
+                        "FINAL_VIDEO_REDO (final)")
+    p.add_argument("--labels", default="",
+                   help="comma-separated tile labels (grid)")
+    p.add_argument("--grid-fps", type=float, default=24.0)
+    p.add_argument("-o", "--output", default="",
+                   help="output folder (split-set, chunk) / video path "
+                        "(grid)")
+
     p = sub.add_parser("serve", help="run the HTTP API server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8431)
@@ -423,7 +598,7 @@ def main(argv=None):
         _print({"output": path, "size": args.size, "colors": args.colors})
         return
     host_commands = {"beats": _beats, "scene-srt": _scene_srt,
-                     "audio": _audio}
+                     "audio": _audio, "builder": _builder, "humo": _humo}
     if args.command in host_commands:
         host_commands[args.command](args)
         return

@@ -15,16 +15,20 @@ module at a time):
   ``beats/scene_srt`` and ``audio/peaks``;
 - compare ``/vrgdg/compare/{image,video,grid}``;
 - face fix ``/vrgdg/face_fix/...`` (eight paths);
+- the music video builder project store and its LLM-instruction store
+  under ``/vrgdg/music_builder/`` (44 paths), the text/audio libraries
+  (``/vrgdg/text_files/``, ``/vrgdg/audio/``, ``/vrgdg/part2/``,
+  ``/vrgdg/test_popup/`` and the builder's ``load_text_file`` /
+  ``save_text_file``), ``/vrgdg/storyboard/``, ``/vrgdg/video_editor/``
+  and ``/vrgdg/lora_dataset/``: host-only, they reach no device;
 - ``/vrgdg/health``, ``/vrgdg/update/status``,
   ``/vrgdg/node_canvas/status``, the panel at ``/vrgdg/ui`` and the ``/``
   redirect to it.
 
-Not registered yet (their requests get 404): the music video builder
-project store, LLM instructions, lyrics and LLM batches, combined files,
-storyboard, text files and the audio library, the quick-input popup,
-prompt creator, start storyboard, video editor, LoRA dataset, Krea2 LoRA
-Studio, text pickers, graph plans and the workflow runner.  They are
-host-only and reach no device.
+Not registered yet (their requests get 404): lyrics and LLM batches,
+combined files, prompt creator, start storyboard, Krea2 LoRA Studio, text
+pickers, graph plans and the workflow runner.  They are host-only and
+reach no device.
 
 Every handler that reaches the device takes the app's one device, which
 :func:`create_app` resolves once: ``cuda`` without a visible card raises
@@ -50,6 +54,12 @@ from aiohttp import web
 
 from .. import __version__
 from ..api import appliers, compare, paths
+from ..api import builder as mvb
+from ..api import instructions as instr
+from ..api import lora_dataset as lds
+from ..api import storyboard as sbd
+from ..api import text_files as tfl
+from ..api import video_editor as ved
 from ..jobs import enhancer as enh
 from ..jobs import face_fix as ff
 from ..release_notes import latest_release, load_release_notes
@@ -61,8 +71,8 @@ PANEL_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "vrgdg_tpu", "server", "static", "index.html")
 
-# GET routes that write project state anyway must pass the same
-# cross-site checks as POSTs (none of them is registered yet)
+# GET routes that write project state anyway (export ingests media and
+# rewrites session.json) must pass the same cross-site checks as POSTs
 _MUTATING_GET_PATHS = frozenset({
     "/vrgdg/music_builder/export_project",
 })
@@ -174,6 +184,11 @@ class _Context:
     luts_dir: str | None
     device: object
     backend: str
+
+    @property
+    def out_root(self) -> str:
+        """The managed root of the host-only stores."""
+        return os.path.abspath(self.base_folder or paths.DEFAULT_OUTPUT_ROOT)
 
 
 # --------------------------------------------------------------------------
@@ -492,6 +507,342 @@ def _face_fix_routes(routes, ctx: _Context) -> None:
           lambda p: ff.finalize_face_fix(p, device=ctx.device), flat=True)
 
 
+def _truthy(text) -> bool:
+    return str(text or "").strip().lower() in ("1", "true", "yes", "on")
+
+
+def _builder_routes(routes, ctx: _Context) -> None:
+    """The music video builder project store and its LLM-instruction
+    store: flat ``{"ok": true, **result}`` answers, as the reference's."""
+    out_root = ctx.out_root
+
+    def route(name, fn):
+        _json_route(routes, "/vrgdg/music_builder/" + name, fn, flat=True)
+
+    route("analyze_audio", lambda p: mvb.analyze_audio(p, out_root))
+    route("import_capcut_beats",
+          lambda p: mvb.find_latest_capcut_beats(p.get("audio_duration", 0)))
+    route("save_session", lambda p: mvb.save_session(p, out_root))
+    route("save_render_log", mvb.save_render_log)
+    route("save_wizard_draft", mvb.save_wizard_draft)
+    route("load_wizard_draft", mvb.load_wizard_draft)
+    route("new_project", lambda p: mvb.new_project(p, out_root))
+    route("save_project_as", lambda p: mvb.save_project_as(p, out_root))
+    route("save_scene_image", mvb.save_scene_image)
+    route("delete_project_media", mvb.delete_media)
+    route("archive_scene_image", mvb.archive_scene_image)
+    route("extract_video_final_frame", mvb.extract_final_frame)
+    route("save_flux_reference_image", mvb.save_reference_image)
+    route("import_reference_subjects",
+          lambda p: mvb.import_reference_cards(p, "subject"))
+    route("import_reference_locations",
+          lambda p: mvb.import_reference_cards(p, "location"))
+    route("save_scene_audio", mvb.save_scene_audio)
+    route("save_project_audio", mvb.save_project_audio)
+    route("save_project_srt", mvb.save_project_srt)
+    route("save_single_scene_srt", mvb.save_scene_srt)
+    route("trim_scene_audio", mvb.trim_scene_audio)
+    route("prepare_scene_audio_mix", mvb.mix_scene_audio)
+    route("load_session", lambda p: mvb.load_session(p.get("project_folder")))
+    route("delete_project", lambda p: mvb.delete_project(p, out_root))
+    route("scan_scene_videos",
+          lambda p: mvb.scan_scene_videos(p.get("project_folder")))
+    route("restore_scene_video", mvb.restore_scene_video)
+    route("load_srt",
+          lambda p: mvb.load_srt(p.get("path") or p.get("srt_path")))
+    route("load_prompt_json", lambda p: mvb.load_prompt_json(p.get("path")))
+    route("project_prompt_creator_paths",
+          lambda p: mvb.prompt_creator_paths(p.get("project_folder")))
+    route("import_latest_prompt_creator_outputs",
+          lambda p: mvb.copy_prompt_creator_outputs(
+              p.get("project_folder"), "", out_root))
+    route("copy_prompt_creator_outputs",
+          lambda p: mvb.copy_prompt_creator_outputs(
+              p.get("project_folder"), p.get("source_project_folder", ""),
+              out_root))
+
+    route("get_instruction", instr.get_instruction)
+    route("save_instruction", instr.save_instruction)
+    route("reset_instruction", instr.reset_instruction)
+    route("list_instruction_presets", lambda p: instr.list_presets(p, out_root))
+    route("save_instruction_preset", lambda p: instr.save_preset(p, out_root))
+    route("load_instruction_preset", lambda p: instr.load_preset(p, out_root))
+
+    @routes.get("/vrgdg/music_builder/instruction_keys")
+    @_handler
+    def builder_instruction_keys(request):
+        return _ok(keys=[{"key": key, "label": entry["label"],
+                          "preset_group": instr.preset_group(key),
+                          "preset_group_label": instr.preset_group_label(key)}
+                         for key, entry in instr.REGISTRY.items()])
+
+    @routes.get("/vrgdg/music_builder/list_projects")
+    @_handler
+    def builder_list_projects(request):
+        return _ok(**mvb.list_projects(
+            out_root, str(request.query.get("project_root") or "")))
+
+    @routes.get("/vrgdg/music_builder/model_defaults")
+    @_handler
+    def builder_model_defaults(request):
+        return _ok(**mvb.load_model_defaults(out_root))
+
+    @routes.get("/vrgdg/music_builder/default_context_paths")
+    @_handler
+    def builder_default_context_paths(request):
+        return _ok(**mvb.default_context_paths(out_root))
+
+    @routes.get("/vrgdg/music_builder/default_audio_srt_paths")
+    @_handler
+    def builder_default_audio_srt_paths(request):
+        return _ok(**mvb.default_audio_srt_paths(out_root))
+
+    @routes.get("/vrgdg/music_builder/audio")
+    @_handler
+    def builder_audio(request):
+        path = os.path.normpath(os.path.abspath(
+            str(request.query.get("path") or "").strip()))
+        # only audio under the managed root is served
+        if not paths._inside(out_root, path) or not os.path.isfile(path):
+            raise FileNotFoundError("Audio file was not found.")
+        if os.path.splitext(path)[1].lower() not in mvb.AUDIO_EXTENSIONS:
+            raise ValueError("Unsupported audio type.")
+        return web.FileResponse(path)
+
+    @routes.get("/vrgdg/music_builder/export_project")
+    @_handler
+    async def builder_export_project(request):
+        loop = asyncio.get_running_loop()
+        zip_path, download_name = await loop.run_in_executor(
+            None, mvb.export_project, request.query.get("project_folder", ""))
+        response = web.StreamResponse(status=200, headers={
+            "Content-Type": "application/zip",
+            "Content-Disposition": f'attachment; filename="{download_name}"',
+            "Content-Length": str(os.path.getsize(zip_path)),
+            "Cache-Control": "no-store"})
+        try:
+            await response.prepare(request)
+            with open(zip_path, "rb") as handle:
+                while True:
+                    chunk = await loop.run_in_executor(None, handle.read,
+                                                       1 << 20)
+                    if not chunk:
+                        break
+                    await response.write(chunk)
+            await response.write_eof()
+            return response
+        finally:
+            try:
+                os.remove(zip_path)
+            except OSError:
+                pass
+
+    @routes.post("/vrgdg/music_builder/import_project")
+    @_handler
+    async def builder_import_project(request):
+        import tempfile
+
+        reader = await request.multipart()
+        requested_name, temp_path = "", ""
+        try:
+            async for part in reader:
+                if part.name == "project_name":
+                    requested_name = (await part.text()).strip()
+                elif part.name == "project_zip":
+                    handle = tempfile.NamedTemporaryFile(
+                        prefix="vrgdg_builder_import_", suffix=".zip",
+                        delete=False)
+                    temp_path = handle.name
+                    try:
+                        await _drain_part(part, handle.write)
+                    finally:
+                        handle.close()
+            if not temp_path or not os.path.isfile(temp_path):
+                raise ValueError(
+                    "Choose a .vrgdg.zip project package to import.")
+            result = await asyncio.get_running_loop().run_in_executor(
+                None, mvb.import_project, temp_path, requested_name, out_root)
+            return _ok(**result)
+        finally:
+            if temp_path:
+                try:
+                    os.remove(temp_path)
+                except OSError:
+                    pass
+
+
+async def _audio_part(request, field: str, flag: str | None = None):
+    """The multipart upload of one audio file: ``(filename, bytes, flag)``,
+    ``flag`` being the truthiness of the text field named so."""
+    reader = await request.multipart()
+    filename, chunks, flagged = "", [], False
+    async for part in reader:
+        if flag is not None and part.name == flag:
+            flagged = _truthy(await part.text())
+        elif part.name == field:
+            filename = part.filename or ""
+            await _drain_part(part, chunks.append)
+    if not filename:
+        raise ValueError("Missing audio file.")
+    return filename, b"".join(chunks), flagged
+
+
+def _text_file_routes(routes, ctx: _Context) -> None:
+    """The text-file browser and savers, the audio library, the
+    ConceptPrompts handoff and the quick-input popup."""
+    out_root = ctx.out_root
+    for name in ("load_text_file", "save_text_file"):
+        _json_route(routes, "/vrgdg/music_builder/" + name,
+                    getattr(tfl, name), flat=True)
+
+    @routes.get("/vrgdg/text_files/list")
+    @_handler
+    def text_files_list(request):
+        return _ok(**tfl.list_category(request.query.get("category"),
+                                       out_root))
+
+    @routes.get("/vrgdg/text_files/folders")
+    @_handler
+    def text_files_folders(request):
+        return _ok(**tfl.list_folders(out_root))
+
+    @routes.get("/vrgdg/text_files/files")
+    @_handler
+    def text_files_for_folder(request):
+        query = request.query
+        return _ok(**tfl.list_folder_files(
+            query.get("folder", ""),
+            use_most_recent=_truthy(query.get("use_most_recent")),
+            custom_base_path=(query.get("custom_base_path", "")
+                              if _truthy(query.get("use_custom_base_path"))
+                              else ""),
+            output_root=out_root))
+
+    # the advanced savers answer under "result", as the reference's
+    _json_route(routes, "/vrgdg/text_files/save_advanced",
+                lambda p: tfl.save_text_advanced(p, out_root))
+    _json_route(routes, "/vrgdg/text_files/save_concat",
+                lambda p: tfl.save_text_concat(p, out_root))
+
+    @routes.get("/vrgdg/audio/list")
+    @_handler
+    def audio_list(request):
+        return _ok(**tfl.list_audio(out_root))
+
+    @routes.post("/vrgdg/audio/upload")
+    @_handler
+    async def audio_upload(request):
+        filename, data, overwrite = await _audio_part(request, "audio",
+                                                      "overwrite")
+        return _ok(**await asyncio.get_running_loop().run_in_executor(
+            None, tfl.save_audio_upload, filename, data, overwrite,
+            out_root))
+
+    @routes.get("/vrgdg/part2/load_concept_prompts")
+    @_handler
+    def part2_concept_prompts(request):
+        return _ok(**tfl.load_shared_concept_prompts(out_root))
+
+    @routes.get("/vrgdg/test_popup/config")
+    @_handler
+    def popup_config(request):
+        return _ok(**tfl.popup_config(out_root))
+
+    _json_route(routes, "/vrgdg/test_popup/save_text",
+                lambda p: tfl.popup_save_text(p, out_root), flat=True)
+
+    @routes.post("/vrgdg/test_popup/upload_audio")
+    @_handler
+    async def popup_upload_audio(request):
+        filename, data, _ = await _audio_part(request, "audio")
+        return _ok(**await asyncio.get_running_loop().run_in_executor(
+            None, tfl.popup_upload_audio, filename, data, out_root))
+
+
+def _storyboard_routes(routes, ctx: _Context) -> None:
+    route = functools.partial(_json_route, routes, flat=True)
+    route("/vrgdg/storyboard/load",
+          lambda p: {"storyboard": sbd.load_storyboard(p)})
+    route("/vrgdg/storyboard/save",
+          lambda p: {"storyboard": sbd.save_storyboard(p)})
+    route("/vrgdg/storyboard/import_reference_image",
+          sbd.import_reference_image)
+    route("/vrgdg/storyboard/export_prompts", sbd.export_prompts)
+
+
+def _remake_next(payload: dict) -> dict:
+    """``video_editor/remake/next``: the next staged clip, with its audio
+    slice written to ``audio_output`` when asked."""
+    p = payload
+    result = ved.next_remake(
+        p.get("session_path"), p.get("srt_file"),
+        p.get("audio_path") or p.get("audio"),
+        queue_index=int(p.get("queue_index", 0) or 0),
+        fps=int(p.get("fps", 24) or 24),
+        tail_loss_frames=(5 if p.get("tail_loss_frames", 5) is None
+                          else int(p.get("tail_loss_frames", 5))),
+        pre_frames=int(p.get("pre_frames", 0) or 0))
+    audio = result.pop("audio", None)
+    if audio is not None and p.get("audio_output"):
+        from ..runtime import audio_toolkit as at
+
+        result["audio_path"] = at.save_wav(str(p["audio_output"]), audio)
+    return result
+
+
+def _video_editor_routes(routes, ctx: _Context) -> None:
+    out_root = ctx.out_root
+    roots = (out_root,)
+    route = functools.partial(_json_route, routes, flat=True)
+    route("/vrgdg/video_editor/list_clips",
+          lambda p: ved.list_clips(p.get("folder_path"),
+                                   p.get("extensions", ""), roots))
+    route("/vrgdg/video_editor/load_session",
+          lambda p: {"session": ved.load_session(p.get("folder_path"),
+                                                 roots)})
+    route("/vrgdg/video_editor/save_session",
+          lambda p: ved.save_session(p.get("folder_path"), p.get("session"),
+                                     roots))
+    route("/vrgdg/video_editor/save_frame",
+          lambda p: ved.save_frame(p, roots))
+    route("/vrgdg/video_editor/load_clip",
+          lambda p: ved.load_clip(p.get("session_path"),
+                                  int(p.get("clip_number", 1) or 1),
+                                  p.get("clip_path", "")))
+    route("/vrgdg/video_editor/remake/next", _remake_next)
+
+    def editor_media(request, allowed):
+        path = os.path.normpath(os.path.abspath(
+            str(request.query.get("path") or "").strip()))
+        # the managed root, or a folder the editor manages (list_clips
+        # takes any absolute folder, so the URLs it emits must be served)
+        if not paths._inside(out_root, path) \
+                and not ved.is_editor_media(path):
+            raise FileNotFoundError("Media file was not found.")
+        if not os.path.isfile(path):
+            raise FileNotFoundError("Media file was not found.")
+        if os.path.splitext(path)[1].lower() not in allowed:
+            raise ValueError("Unsupported media type.")
+        return web.FileResponse(path)
+
+    @routes.get("/vrgdg/video_editor/video")
+    @_handler
+    def editor_video(request):
+        return editor_media(request, set(ved.VIDEO_EXTENSIONS))
+
+    @routes.get("/vrgdg/video_editor/image")
+    @_handler
+    def editor_image(request):
+        return editor_media(request, {".png", ".jpg", ".jpeg", ".webp"})
+
+
+def _lora_dataset_routes(routes, ctx: _Context) -> None:
+    route = functools.partial(_json_route, routes, flat=True)
+    route("/vrgdg/lora_dataset/save_pair", lds.save_pair)
+    route("/vrgdg/lora_dataset/save_ic_pair", lds.save_ic_pair)
+    route("/vrgdg/lora_dataset/list", lds.list_dataset)
+
+
 def _status_routes(routes, ctx: _Context) -> None:
     @routes.get("/vrgdg/health")
     @_handler
@@ -535,8 +886,9 @@ def _ui_routes(routes, ctx: _Context) -> None:
 
 
 _ROUTE_GROUPS = (_enhancer_routes, _lut_grain_adjust_routes, _audio_routes,
-                 _compare_routes, _face_fix_routes, _status_routes,
-                 _ui_routes)
+                 _compare_routes, _face_fix_routes, _builder_routes,
+                 _text_file_routes, _storyboard_routes, _video_editor_routes,
+                 _lora_dataset_routes, _status_routes, _ui_routes)
 
 
 def create_app(base_folder: str | None = None, luts_dir: str | None = None,
