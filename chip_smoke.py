@@ -139,11 +139,31 @@ Phases, one line each (any failure raises and the exit code is not 0):
     and the two roots must end as equal file trees (names and bytes, the
     roots' paths blanked, file times left out); then the ``builder`` and
     ``humo`` commands' actions.  None of the six kernels may launch, and
-    the phase must end within 60 s.
+    the phase must end within 60 s;
+19. the workflow runner, scene render, prompt creator, start storyboard
+    and Krea2 LoRA Studio by request on the same server, each answer
+    equal to the in-process call on a twin root (the modules' clocks
+    frozen, ``random`` seeded alike, MiniMax H3's output root switched to
+    the side's root): a seeded fake model root set by the model-root
+    POST, the 16 prompt builders with explicit seeds and
+    ``clear_memory``, a seed of -1 drawn in [0, 2**64 - 1]; the seven
+    scene-render routes and the scene-audio trim with a recording runner
+    on ``scene_render``'s ffmpeg seam (1080p frames written by cv2), equal
+    command plans and colour-match cubes, then without it a render route
+    failing with ``find_ffmpeg_path``'s message where no ffmpeg is
+    installed; the prompt creator's multipart import of a seeded 60 s
+    stereo 44.1 kHz WAV, outputs, drafts, instructions and the hidden
+    Whisper workflow; a start storyboard imported into a 12-scene builder
+    project and its image route; Krea2 1080p PNG edit pairs by multipart
+    (a pair of two sizes and a file that holds no image, whose problems
+    must be exact, then replaced), samples, the XYZ grid and run plans;
+    then the ``workflow`` command's ``list`` and a ``build``.  The roots
+    must end as equal trees, none of the six kernels may launch, and the
+    phase must end within 45 s.
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
-runs, 17's grade, enhancer and concurrent requests, and 18's requests and
-commands) is driven with the launch counts set to 0 just before it and
+runs, 17's grade, enhancer and concurrent requests, and 18's and 19's
+requests and commands) is driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -2476,16 +2496,24 @@ class _Server:
 def _multipart(name: str, filename: str, data: bytes,
                fields: dict | None = None) -> tuple[bytes, str]:
     """A multipart body: the text ``fields``, then one file part."""
+    return _multipart_files([(name, filename, data)], fields)
+
+
+def _multipart_files(files, fields: dict | None = None) -> tuple[bytes, str]:
+    """A multipart body: the text ``fields``, then the file parts
+    ``(name, filename, bytes)``."""
     boundary = "vrgdgsmoke" + "7" * 16
     body = b"".join(
         (f"--{boundary}\r\nContent-Disposition: form-data; "
          f'name="{key}"\r\n\r\n{value}\r\n').encode()
         for key, value in (fields or {}).items())
-    body += (f"--{boundary}\r\nContent-Disposition: form-data; "
-             f'name="{name}"; filename="{filename}"\r\n'
-             "Content-Type: application/octet-stream\r\n\r\n").encode() \
-        + data + f"\r\n--{boundary}--\r\n".encode()
-    return body, f"multipart/form-data; boundary={boundary}"
+    for name, filename, data in files:
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                 f'name="{name}"; filename="{filename}"\r\n'
+                 "Content-Type: application/octet-stream\r\n\r\n"
+                 ).encode() + data + b"\r\n"
+    return body + f"--{boundary}--\r\n".encode(), \
+        f"multipart/form-data; boundary={boundary}"
 
 
 def _click_track(path: str) -> str:
@@ -2982,61 +3010,70 @@ def _frozen_store_clocks(now: float):
     real."""
     from datetime import datetime
 
-    from vrgdg_tpu_torch.api import (builder, instructions, lora_dataset,
-                                     storyboard, text_files, video_editor)
+    from vrgdg_tpu_torch.api import (builder, instructions, krea2_studio,
+                                     lora_dataset, prompt_creator,
+                                     scene_render, start_storyboard,
+                                     storyboard, text_files, video_editor,
+                                     workflow_runner)
+    from vrgdg_tpu_torch.runtime import text_tools
 
     class Frozen(datetime):
         @classmethod
         def now(cls, tz=None):
             return datetime.fromtimestamp(now, tz)
 
+    scene_clock = _SceneClock(now)
     saved = []
     for module in (builder, instructions, lora_dataset, storyboard,
-                   text_files, video_editor):
-        for name, real, fake in (("time", time, _FrozenClock(now)),
+                   text_files, video_editor, prompt_creator,
+                   start_storyboard, workflow_runner, krea2_studio,
+                   text_tools, scene_render):
+        clock = scene_clock if module is scene_render else _FrozenClock(now)
+        for name, real, fake in (("time", time, clock),
                                  ("datetime", datetime, Frozen)):
             if getattr(module, name, None) is real:
                 saved.append((module, name, real))
                 setattr(module, name, fake)
     try:
-        yield
+        yield scene_clock
     finally:
         for module, name, real in saved:
             setattr(module, name, real)
 
 
-def _store_canon(value, root: str):
-    """A store's answer with its root as ``<root>`` and file times left
-    out."""
+def _store_canon(value, root: str, drop=_STORE_TIMES):
+    """A store's answer with its root as ``<root>`` and file times (the
+    keys in ``drop``) left out."""
     if isinstance(value, dict):
-        return {k: _store_canon(v, root) for k, v in value.items()
-                if k not in _STORE_TIMES}
+        return {k: _store_canon(v, root, drop) for k, v in value.items()
+                if k not in drop}
     if isinstance(value, (list, tuple)):
-        return [_store_canon(v, root) for v in value]
+        return [_store_canon(v, root, drop) for v in value]
     if isinstance(value, str):
         return _EPOCH.sub("#", value.replace(root, "<root>"))
     return value
 
 
-def _store_bytes(name: str, data: bytes, root: str):
+def _store_bytes(name: str, data: bytes, root: str, drop=_STORE_TIMES):
     if name.endswith(".json"):
         try:
-            return _store_canon(json.loads(data.decode("utf-8-sig")), root)
+            return _store_canon(json.loads(data.decode("utf-8-sig")), root,
+                                drop)
         except ValueError:
             pass
-    if os.path.splitext(name)[1] in (".txt", ".srt", ".json"):
+    if os.path.splitext(name)[1] in (".txt", ".srt", ".json", ".yaml"):
         return _store_canon(data.decode("utf-8"), root)
     return data
 
 
-def _store_tree(root: str) -> dict:
+def _store_tree(root: str, drop=_STORE_TIMES) -> dict:
     found = {}
     for folder, _, names in os.walk(root):
         for name in names:
             path = os.path.join(folder, name)
             with open(path, "rb") as handle:
                 found[os.path.relpath(path, root)] = _store_bytes(
-                    name, handle.read(), root)
+                    name, handle.read(), root, drop)
     return found
 
 
@@ -3073,8 +3110,12 @@ class _Twin:
     function on a twin root: equal answers once each root reads
     ``<root>`` and file times are left out."""
 
-    def __init__(self, srv: _Server, served: str, twin: str):
+    def __init__(self, srv: _Server, served: str, twin: str,
+                 before=None, drop=_STORE_TIMES):
+        # ``before(root)`` runs just before each side's call
         self.srv, self.served, self.twin = srv, served, twin
+        self.before = before or (lambda root: None)
+        self.drop = drop
 
     @staticmethod
     def _fill(value, root: str):
@@ -3085,11 +3126,13 @@ class _Twin:
         # distinct file times, so the stores' mtime orderings never tie
         time.sleep(0.012)
         params = self._fill(payload, self.served)
+        self.before(self.served)
         if method == "GET":
             _, body, _ = self.srv.call(method, path, params=params or None,
                                        status=status)
         else:
             _, body, _ = self.srv.call(method, path, params, status=status)
+        self.before(self.twin)
         try:
             result = fn(self._fill(payload, self.twin))
             want = {"ok": True, **result} if flat \
@@ -3097,7 +3140,8 @@ class _Twin:
         except Exception as exc:  # noqa: BLE001 — refusals are answers
             want = {"ok": False, "error": str(exc)}
         want = json.loads(json.dumps(want))
-        if _store_canon(body, self.served) != _store_canon(want, self.twin):
+        if _store_canon(body, self.served, self.drop) \
+                != _store_canon(want, self.twin, self.drop):
             raise AssertionError(f"{method} {path}: {str(body)[:600]} "
                                  f"!= in process {str(want)[:600]}")
         return body
@@ -3491,6 +3535,814 @@ def builder_phase(device) -> None:
                              f"{BUILDER_LIMIT_S} s")
 
 
+WORKFLOW_STILL = (1080, 1920)                          # H, W
+WORKFLOW_SCENES = 12
+WORKFLOW_MIX = (60.0, 44100)                           # seconds, rate
+WORKFLOW_LIMIT_S = 45.0
+WORKFLOW_SEED = 1901
+# the catalog's model names as the builders' templates name them (a
+# backslash is a subfolder of the category's folder)
+WORKFLOW_MODELS = {
+    "loras": ["a.safetensors", "sub\\b.safetensors",
+              "licon\\LTX-2.3-Licon-MSR-V1.safetensors",
+              "ltx-2.3-22b-ic-lora-ingredients-0.9.safetensors",
+              "lora_weights.safetensors",
+              "minimax_h3_turbo_4step_ema_ckpt850.safetensors"],
+    "unet": ["z_image_turbo_bf16.safetensors", "model.gguf"],
+    "diffusion_models": ["krea2_turbo_fp8_scaled.safetensors",
+                         "minimax_h3_ref2va_pruned_int8_convrot.safetensors"],
+    "clip": ["qwen_3_4b.safetensors"],
+    "text_encoders": ["qwen3vl_4b_fp8_scaled.safetensors",
+                      "qwen3vl_32b_minimax_h3_nvfp4_awq.safetensors"],
+    "vae": ["qwen_image_vae.safetensors", "ae.safetensors",
+            "minimax_h3_video_vae_fp16.safetensors",
+            "minimax_h3_audio_vae_fp32.safetensors"],
+    "upscale_models": ["4x.safetensors"],
+}
+# phase 19's answers also carry the Krea2 dataset's signature, a hash
+# over its files' times
+_WORKFLOW_DROP = _STORE_TIMES | {"signature"}
+# the slideshow's scratch folder is a tempfile.mkdtemp name
+_SLIDESHOW_SCRATCH = re.compile(r"_slideshow_[^/'\"]+")
+
+
+class _SceneClock(_FrozenClock):
+    """``scene_render``'s clock: held at one instant, except that a sleep
+    moves it on at once (the render routes poll a file until its size
+    settles); :meth:`reset` puts it back, so a request and its twin see
+    the same times."""
+
+    def __init__(self, now: float):
+        super().__init__(now)
+        self._start = now
+
+    def sleep(self, seconds) -> None:
+        self._now += max(0.0, float(seconds))
+
+    def reset(self) -> None:
+        self._now = self._start
+
+
+class RecordingRunner:
+    """ffmpeg and ffprobe on ``scene_render``'s runner seam: each command
+    is recorded, the LUT a filter graph reads is kept, and each output is
+    written (a seeded frame by cv2 for a PNG, a WAV of silence for a WAV,
+    a few bytes for other media), so the routes' checks of their outputs
+    pass where no ffmpeg is installed."""
+
+    def __init__(self, frame: tuple[int, int] = WORKFLOW_STILL):
+        self.frame = frame
+        self.commands: list[list[str]] = []
+        self.cubes: list[bytes] = []
+
+    def __call__(self, cmd, *, check=False, cwd=None):
+        import types
+        import wave
+
+        import cv2
+
+        cmd = [str(part) for part in cmd]
+        self.commands.append(cmd)
+        done = types.SimpleNamespace(returncode=0, stdout="", stderr="")
+        if "ffprobe" in os.path.basename(cmd[0]):
+            done.stdout = ("4.000000\n" if "format=duration" in cmd
+                           else "640x360\n")
+            return done
+        for part in cmd:
+            if "lut3d=file='" in part:
+                name = part.split("lut3d=file='", 1)[1].split("'", 1)[0]
+                with open(os.path.join(cwd or "", name), "rb") as handle:
+                    self.cubes.append(handle.read())
+        target = os.path.join(cwd or "", cmd[-1])
+        ext = os.path.splitext(target)[1].lower()
+        if ext == ".png":
+            # a frame keyed by the file's name: the grabs of a request and
+            # of its twin have equal pixels
+            rng = np.random.default_rng(sum(os.path.basename(target)
+                                            .encode()))
+            level, spread = rng.uniform(40, 200, 3), rng.uniform(8, 50, 3)
+            frame = rng.normal(level, spread, (*self.frame, 3))
+            if not cv2.imwrite(target, np.clip(frame, 0, 255)
+                               .astype(np.uint8)):
+                raise RuntimeError(f"cv2 could not write {target}")
+        elif ext == ".wav":
+            seconds = float(cmd[cmd.index("-t") + 1]) if "-t" in cmd \
+                else 1.0
+            with wave.open(target, "wb") as handle:
+                handle.setnchannels(2)
+                handle.setsampwidth(2)
+                handle.setframerate(44100)
+                handle.writeframes(bytes(4 * int(round(seconds * 44100))))
+        else:
+            with open(target, "wb") as handle:
+                handle.write(b"media:" + os.path.basename(target).encode())
+        return done
+
+
+def command_plan(commands, root: str) -> list:
+    """Recorded commands with the root as ``<root>`` and the slideshow's
+    scratch folder named alike."""
+    return [[_SLIDESHOW_SCRATCH.sub("_slideshow_#",
+                                    part.replace(root, "<root>"))
+             for part in cmd] for cmd in commands]
+
+
+def workflow_model_root(folder: str, seed: int) -> str:
+    """A model root of empty files named like the catalog's models, with
+    two seeded LoRA names besides."""
+    rng = np.random.default_rng(seed)
+    names = {category: list(found)
+             for category, found in WORKFLOW_MODELS.items()}
+    names["loras"] += [f"seeded_{int(rng.integers(10 ** 6)):06d}"
+                       ".safetensors" for _ in range(2)]
+    for category, found in names.items():
+        for name in found:
+            path = os.path.join(folder, category, *name.split("\\"))
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            open(path, "wb").close()
+    return folder
+
+
+def workflow_payloads(rng, media: dict) -> dict:
+    """One seeded payload for each of the 16 builders, with explicit
+    seeds; ``{root}`` stands for the root of the side that sends it.
+    ``media``: ``audio``, ``srt``, ``image``, ``image2``, ``frames`` (a
+    folder), ``h3_project`` (a folder) and ``loras`` (names)."""
+
+    def seed():
+        return int(rng.integers(0, 2 ** 40))
+
+    def size(low=256, high=2048):
+        return int(rng.integers(low, high))
+
+    def loras():
+        fields = {"use_custom_loras": True,
+                  "lora_count": int(rng.integers(1, 4))}
+        for slot in range(1, 5):
+            fields[f"lora_{slot}"] = str(rng.choice(
+                media["loras"] + ["missing.safetensors", "[none]"]))
+            fields[f"strength_{slot}"] = float(rng.uniform(-2, 2))
+        return fields
+
+    def scene():
+        return {"audio_path": media["audio"], "srt_path": media["srt"],
+                "project_folder": "{root}/wf_project",
+                "scene_number": int(rng.integers(1, 4)),
+                "prompt_number_one_based": int(rng.integers(1, 4)),
+                "fps": 24, "seed": seed(),
+                "tail_loss_frames": int(rng.integers(0, 12)),
+                "pre_frames": int(rng.integers(0, 12))}
+
+    return {
+        "zimage": {"prompt": "a scenic view", "seed": seed(),
+                   "first_pass_width": size(),
+                   "second_pass_height": str(size()),
+                   "batch_size": int(rng.integers(1, 4)),
+                   "ltx_two_pass_mode": bool(rng.random() < 0.5),
+                   **loras()},
+        "krea2": {"prompt": "a castle on a hill", "seed": seed(),
+                  "width": size(), "height": size(),
+                  "first_pass_width": size(), "first_pass_height": size(),
+                  "use_zimage_enhance": True,
+                  "zimage_enhance_strength": float(rng.uniform(0, 1))},
+        "krea2_2pass": {"prompt": "portrait in rain", "seed": seed(),
+                        "aspect_ratio": "16:9 (Widescreen)",
+                        "cfg": float(rng.uniform(0.5, 2.0)),
+                        "image_to_image_creativity": int(
+                            rng.integers(0, 10)),
+                        "use_loras": False, **loras()},
+        "ernie_image": {"prompt": "neon city", "seed": seed(),
+                        "width": size(), "height": size(), **loras()},
+        "flux_klein": {"prompt": "two subjects dancing in a large hall",
+                       "seed": seed(), "width": size(), "height": size(),
+                       "image_ingredients": [{"path": media["image"]}],
+                       **loras()},
+        "nb_image": {"prompt": "a quiet village under snowfall at dusk",
+                     "api_key": "AIzaSyFakeKey1234567890",
+                     "image_ingredients": [{"path": media["image2"]}]},
+        "z_upscale_enhance": {"prompt": "enhance this", "seed": seed(),
+                              "width": size(), "height": size(),
+                              "enhance_amount": int(rng.integers(0, 20)),
+                              "source_image_path": media["image"],
+                              **loras()},
+        "i2v": {**scene(), "i2v_prompt": "singer on a rooftop",
+                "image_folder": media["frames"],
+                "image_index_zero_based": int(rng.integers(0, 3)),
+                "width": size(), "height": size(),
+                "use_gguf_model": True, "unet_name": "model.gguf",
+                **loras()},
+        "t2v": {**scene(), "t2v_prompt": "city time-lapse",
+                "width": size(), "height": size(), **loras()},
+        "rtv": {**scene(), "t2v_prompt": "band performing",
+                "msr_lora_name": "licon/LTX-2.3-Licon-MSR-V1.safetensors",
+                "msr_reference_strength": "25 - balanced",
+                "msr_background_mode": "neutral",
+                "rtv_references": {"subjects": [{"path": media["image"]}],
+                                   "use_subject_placeholder": False},
+                **loras()},
+        "ingredients": {**scene(), "t2v_prompt": "ingredient shot",
+                        "ingredients_image_path": media["image"],
+                        "width": size(64), "height": size(64)},
+        "id_lora": {"id_lora_prompt": "close-up performance",
+                    "source_image_path": media["image"],
+                    "reference_audio_path": media["audio"],
+                    "project_folder": "{root}/wf_project", "fps": 24,
+                    "duration": float(rng.uniform(2, 8)),
+                    "pass1_seed": seed(),
+                    "identity_guidance_scale": float(rng.uniform(1, 20)),
+                    "id_lora_name": "lora_weights.safetensors",
+                    "crf": int(rng.integers(10, 40)), **loras()},
+        "flf": {"i2v_prompt": "sunrise to sunset",
+                "audio_path": media["audio"], "srt_path": media["srt"],
+                "project_folder": "{root}/wf_project",
+                # names in the ingest folder: two files copied in at
+                # one frozen instant would get one name
+                "first_frame": {"path": "first_frame.png"},
+                "last_frame": {"path": "last_frame.png"},
+                "first_guide_strength": float(rng.uniform(0, 1)),
+                "last_guide_interpolation": "lanczos", **loras()},
+        "minimax_h3": {"audio_mode": "built_in_audio",
+                       "prompt": "drummer in the rain",
+                       "project_folder": media["h3_project"],
+                       "scene_number": int(rng.integers(1, 8)),
+                       "timeline_start_seconds": float(rng.integers(0, 10)),
+                       "scene_duration_seconds": float(rng.integers(2, 8)),
+                       "warmup_frames": int(rng.integers(0, 30)),
+                       "cooldown_frames": int(rng.integers(0, 30)),
+                       "aspect_ratio": "16:9 (Widescreen)",
+                       "megapixels": float(rng.uniform(0.5, 4)),
+                       "seed": seed(), "steps": int(rng.integers(4, 40)),
+                       "image_paths": [media["image"]]},
+        "transcribe": {"audio_path": media["audio"],
+                       "srt_path": media["srt"],
+                       "reference_lyrics": "la la", "language": "english",
+                       "fill_aggressiveness": int(rng.integers(0, 5)),
+                       "model_name": "large-v3"},
+        "timestamped_transcribe": {
+            "audio_path": media["audio"], "segment_mode": "reference_lines",
+            "min_gap_seconds": float(rng.uniform(0, 10)),
+            "max_scene_seconds": float(rng.uniform(5, 30))},
+    }
+
+
+def _workflow_media(folder: str) -> dict:
+    """Phase 19's shared inputs under ``folder``: 1080p stills (PNG bytes
+    too), the seeded 60 s stereo WAV, a 12-scene SRT, the model root."""
+    import base64
+
+    from vrgdg_tpu_torch.api import builder as mvb
+
+    height, width = WORKFLOW_STILL
+    seconds, rate = WORKFLOW_MIX
+    frames = os.path.join(folder, "frames")
+    h3_project = os.path.join(folder, "h3_project")
+    os.makedirs(frames)
+    os.makedirs(h3_project)
+    stills = [_still(os.path.join(frames, f"frame_{n:03d}.png"), height,
+                     width, 1910 + n) for n in range(3)]
+    span = seconds / WORKFLOW_SCENES
+    segments = [{"id": f"s{n}", "start": span * (n - 1), "end": span * n,
+                 "label": f"Scene {n}", "lyric_text": f"line {n}",
+                 "t2i_prompt": f"a wide shot {n}"}
+                for n in range(1, WORKFLOW_SCENES + 1)]
+    srt = os.path.join(folder, "scenes.srt")
+    with open(srt, "w", encoding="utf-8") as handle:
+        handle.write(mvb.segments_to_srt(segments))
+    pngs = []
+    for path in stills[:2]:
+        with open(path, "rb") as handle:
+            pngs.append(handle.read())
+    models = workflow_model_root(os.path.join(folder, "models"),
+                                 WORKFLOW_SEED)
+    return {
+        "folder": folder, "frames": frames, "h3_project": h3_project,
+        "image": stills[0], "image2": stills[1], "pngs": pngs,
+        "data_url": "data:image/png;base64,"
+        + base64.b64encode(pngs[0]).decode(),
+        "audio": _seeded_wav(os.path.join(folder, "mix.wav"), seconds,
+                             rate, 1902),
+        "srt": srt, "segments": segments, "models": models,
+        "loras": sorted(name for _, _, names in os.walk(
+            os.path.join(models, "loras")) for name in names)}
+
+
+def _with_registered(result: dict) -> dict:
+    """The model-root GET's answer: the root and whether it is a
+    folder."""
+    result["registered"] = bool(result.get("models_root")
+                                and os.path.isdir(result["models_root"]))
+    return result
+
+
+def _workflow_runner_requests(step, srv, served: str, twin: str,
+                              media: dict, runners: dict) -> dict:
+    """The workflow runner's 30 paths (the 16 builders, clear_memory,
+    the model root, the choices) and the scene-render routes through
+    the recording runner; returns ``{"ffmpeg_commands": n}``."""
+    import shutil
+
+    from vrgdg_tpu_torch.api import scene_render as sr
+    from vrgdg_tpu_torch.api import workflow_runner as wr
+    from vrgdg_tpu_torch.runtime import video_io
+
+    base = "/vrgdg/workflow_runner/"
+    step("GET", base + "model_root", {},
+         lambda p: _with_registered(wr.load_model_root(twin)))
+
+    def save_root(p):
+        result = wr.save_model_root(p.get("models_root", ""), twin)
+        wr.set_default_catalog(None)
+        return result
+
+    step("POST", base + "model_root", {"models_root": media["models"]},
+         save_root)
+    step("GET", base + "model_root", {},
+         lambda p: _with_registered(wr.load_model_root(twin)))
+    step("GET", base + "lora_list", {}, lambda p: wr.lora_list())
+    step("GET", base + "i2v_choices", {}, lambda p: wr.i2v_choices())
+    step("GET", base + "builders", {}, lambda p: {
+        "builders": sorted(list(wr.BUILDERS) + ["clear_memory"])})
+    payloads = workflow_payloads(np.random.default_rng(WORKFLOW_SEED),
+                                 media)
+    if sorted(payloads) != sorted(wr.BUILDERS):
+        raise AssertionError(f"payloads for {sorted(payloads)}")
+    for key, payload in payloads.items():
+        body = step("POST", base + f"build_{key}_prompt", payload,
+                    lambda p, key=key: wr.BUILDERS[key](p, base=twin))
+        if not isinstance(body.get("prompt"), dict) or not body["prompt"]:
+            raise AssertionError(f"build_{key}_prompt: {str(body)[:300]}")
+    step("POST", base + "build_clear_memory_prompt", {},
+         lambda p: wr.build_clear_memory_prompt())
+    # a seed of -1 draws one (not comparable with a twin)
+    step.before(served)
+    _, body, _ = srv.call("POST", base + "build_minimax_h3_prompt",
+                          {**payloads["minimax_h3"], "seed": -1})
+    if not 0 <= body["used_seed"] <= 2 ** 64 - 1:
+        raise AssertionError(f"drawn seed {body['used_seed']}")
+
+    # the scene-render routes: ffmpeg on the seam, the roots' scene files
+    for root in (served, twin):
+        scenes = os.path.join(root, "scenes")
+        for relative in ("rendered_scene_videos/video_0001-audio.mp4",
+                         "rendered_scene_videos/video_0002-audio.mp4",
+                         "image_to_video_clips_a/video_0003_take-audio.mp4",
+                         "image_to_video_clips_a/video_0004-audio.mp4",
+                         "clips/take.mp4", "clips/long_take.mp4",
+                         "insert.mp4"):
+            path = os.path.join(scenes, relative)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "wb") as handle:
+                handle.write(b"clip:" + relative.encode())
+        os.makedirs(os.path.join(scenes, "text_to_video_clips_old"))
+        os.makedirs(os.path.join(root, "renders"))
+        shutil.copyfile(media["image"],
+                        os.path.join(root, "renders", "gen_0001.png"))
+    scenes = "{root}/scenes"
+    videos = scenes + "/rendered_scene_videos"
+    real_find = video_io.find_ffmpeg
+    video_io.find_ffmpeg = lambda: "ffmpeg"
+    try:
+        step("POST", base + "collect_scene_video",
+             {"project_folder": scenes, "scene_number": 3,
+              "existing_action": "backup", "source_path":
+              scenes + "/image_to_video_clips_a/video_0003_take-audio.mp4"},
+             sr.collect_scene_video)
+        step("POST", base + "collect_scene_video",
+             {"project_folder": scenes, "scene_number": 1,
+              "existing_action": "backup",
+              "source_path": scenes + "/clips/take.mp4"},
+             sr.collect_scene_video)
+        step("POST", base + "trim_scene_video",
+             {"project_folder": scenes, "scene_number": 2,
+              "source_path": scenes + "/clips/long_take.mp4",
+              "start": 1.25,
+              "duration": 3.5, "label": "Best Take!",
+              "mark_as_audio_video": True}, sr.trim_scene_video)
+        step("POST", base + "find_scene_video_output",
+             {"project_folder": scenes, "scene_number": 4},
+             sr.find_scene_video_output)
+        step("POST", base + "match_scene_video_start_color",
+             {"project_folder": scenes, "fade_seconds": 1.5,
+              "strength": 0.7, "video_path": videos + "/video_0002-audio.mp4",
+              "reference_video_path": videos + "/video_0001-audio.mp4"},
+             sr.match_scene_start_color)
+        step("POST", base + "stitch_scene_videos",
+             {"project_folder": scenes,
+              "scene_paths": [f"{videos}/video_{n:04d}-audio.mp4"
+                              for n in (1, 2, 3)],
+              "scene_audio_items": [{"path": media["audio"],
+                                     "start": 5.0 * n, "duration": 5.0}
+                                    for n in range(3)],
+              "overlay_items": [{"path": scenes + "/insert.mp4",
+                                 "start": 1.0, "end": 2.5,
+                                 "source_start": 0.25}],
+              "scene_timing_items": [{"start": 0.0, "end": 5.0},
+                                     {"start": 5.0, "end": 10.0},
+                                     {"start": 10.0, "end": 15.0}],
+              "timeline_fps": 24, "width": 1280, "height": 720,
+              "output_prefix": "FINAL_VIDEO"}, sr.stitch_scene_videos)
+        step("POST", base + "render_image_slideshow",
+             {"project_folder": scenes, "audio_path": media["audio"],
+              "audio_start": 2.0, "width": 1920, "height": 1080, "fps": 24,
+              "image_items": [{"path": media["image"], "duration": 2.5},
+                              {"path": media["image2"], "duration": 3.0}]},
+             sr.render_image_slideshow)
+        step("POST", base + "save_image",
+             {"image": {"filename": "gen_0001.png", "subfolder": "renders",
+                        "type": "output"}, "save_folder": "Approved"},
+             lambda p: sr.save_generated_image(p, base=twin))
+        step("POST", base + "prepare_scene_audio_clip",
+             {"audio_path": media["audio"], "project_folder": scenes,
+              "scene_number": 5, "start_seconds": 12.5,
+              "duration_seconds": 4.0},
+             lambda p: wr.prepare_scene_audio_clip(p, base=twin))
+    finally:
+        video_io.find_ffmpeg = real_find
+        sr.set_ffmpeg_runner(None)
+    plans = [command_plan(runners[root].commands, root)
+             for root in (served, twin)]
+    if plans[0] != plans[1] or not plans[0]:
+        raise AssertionError("the ffmpeg command plans differ")
+    cubes = [runners[root].cubes for root in (served, twin)]
+    if cubes[0] != cubes[1] or len(cubes[0]) != 1 \
+            or not cubes[0][0].startswith(b'TITLE "VRGDG opening'):
+        raise AssertionError("the colour-match cubes differ")
+    # without the runner the default seam runs; with no ffmpeg installed
+    # each render route fails with find_ffmpeg_path's message
+    if shutil.which("ffmpeg") is None:
+        body = step("POST", base + "trim_scene_video",
+                    {"project_folder": scenes, "scene_number": 2,
+                     "source_path": scenes + "/clips/long_take.mp4"},
+                    sr.trim_scene_video, status=400)
+        if "FFmpeg was not found" not in body["error"]:
+            raise AssertionError(f"without ffmpeg: {body}")
+    return {"ffmpeg_commands": len(plans[0])}
+
+
+def _prompt_creator_requests(step, srv, served: str, twin: str,
+                             media: dict) -> None:
+    """The prompt creator's 13 paths: the multipart audio import, the
+    outputs, a draft saved and loaded, the instruction store, the
+    hidden Whisper workflow."""
+    from vrgdg_tpu_torch.api import pc_instructions as pci
+    from vrgdg_tpu_torch.api import prompt_creator as pcr
+
+    base = "/vrgdg/music_prompt_creator/"
+    project = "{root}/Chip Prompts"
+    with open(media["audio"], "rb") as handle:
+        wav = handle.read()
+    step.before(served)
+    data, content_type = _multipart(
+        "audio", "Chip Song!.wav", wav,
+        fields={"project_folder": project.replace("{root}", served)})
+    _, body, _ = srv.call("POST", base + "import_audio", data=data,
+                          headers={"Content-Type": content_type})
+    step.before(twin)
+    want = {"ok": True, **pcr.import_audio(
+        project.replace("{root}", twin), "Chip Song!.wav", wav, twin)}
+    if _store_canon(body, served) != _store_canon(want, twin):
+        raise AssertionError("import_audio differs from in process")
+    audio = body["audio_path"].replace(served, "{root}")
+    segments = media["segments"]
+    step("POST", base + "save_outputs",
+         {"project_folder": project, "full_lyrics": "\n".join(
+             seg["lyric_text"] for seg in segments), "subject": "Ann",
+          "segments": {f"segment{n}": seg["lyric_text"]
+                       for n, seg in enumerate(segments, 1)},
+          "prompts": json.dumps({f"Prompt{n}": seg["t2i_prompt"]
+                                 for n, seg in enumerate(segments, 1)}),
+          "i2v_motion_notes": {"Motion1": "slow pan"},
+          "srt_text": open(media["srt"], encoding="utf-8").read()},
+         lambda p: pcr.save_outputs(p, twin))
+    step("POST", base + "save_draft",
+         {"project_folder": project, "full_lyrics": "hello world",
+          "corrected_segments_text": '{"segment1": "hello world"}',
+          "use_srt_durations": "false", "fixed_scene_duration": 5},
+         lambda p: pcr.save_draft(p, twin))
+    step("POST", base + "load_draft", {"project_folder": project},
+         lambda p: pcr.load_draft(p, twin))
+    step("GET", base + "list_drafts", {}, lambda p: pcr.list_drafts(twin))
+    step("GET", base + "config", {}, lambda p: pcr.config(twin))
+    key = {"project_folder": project, "key": "style_theme"}
+    for name, payload, fn in (
+            ("get_instruction", key, pci.get_instruction),
+            ("save_instruction", {**key, "text": "moody neon"},
+             pci.save_instruction),
+            ("get_instruction", key, pci.get_instruction),
+            ("reset_instruction", key, pci.reset_instruction),
+            ("save_instruction_preset", {"key": "style_theme",
+                                         "name": "Neon", "text": "neon"},
+             pci.save_preset),
+            ("list_instruction_presets", {"key": "style_theme"},
+             pci.list_presets),
+            ("load_instruction_preset", {"key": "style_theme",
+                                         "name": "Neon"}, pci.load_preset)):
+        step("POST", base + name, payload, lambda p, fn=fn: fn(p, twin))
+    step("POST", base + "build_whisper_prompt",
+         {"project_folder": project, "audio_path": audio,
+          "full_lyrics": "line 1\nline 2", "whisper_language": "english"},
+         lambda p: pcr.build_whisper_prompt(p, twin))
+
+
+def _start_storyboard_requests(step, srv, served: str, media: dict) -> None:
+    """A 12-scene builder project with two 1080p scene images, then the
+    start storyboard's 8 paths on it."""
+    from vrgdg_tpu_torch.api import builder as mvb
+    from vrgdg_tpu_torch.api import start_storyboard as ssb
+    from vrgdg_tpu_torch.server.routes import (_ssb_save,
+                                               _ssb_save_reference)
+
+    builder = "/vrgdg/music_builder/"
+    project = "{root}/Chip Board"
+    step("POST", builder + "new_project", {"project_name": "Chip Board"},
+         lambda p: mvb.new_project(p, step.twin))
+    step("POST", builder + "save_session",
+         {"project_folder": project, "audio_path": media["audio"],
+          "session": {"segments": media["segments"]}},
+         lambda p: mvb.save_session(p, step.twin))
+    body = step("POST", builder + "save_scene_image",
+                {"project_folder": project, "scene_number": 1,
+                 "image_data": media["data_url"]}, mvb.save_scene_image)
+    # the builder's start frames: scene 1's approved image, scene 2's
+    # image as inline data
+    segments = [dict(seg) for seg in media["segments"]]
+    segments[0]["approved_image_path"] = body["saved_path"].replace(
+        step.served, "{root}")
+    segments[1]["custom_image_data"] = media["data_url"]
+    step("POST", builder + "save_session",
+         {"project_folder": project, "session": {"segments": segments}},
+         lambda p: mvb.save_session(p, step.twin))
+
+    def route(name, payload, fn, status=200):
+        return step("POST", "/vrgdg/start_storyboard/" + name,
+                    {"project_folder": project, **payload},
+                    lambda p: fn(ssb.project_folder(p["project_folder"]), p),
+                    status=status)
+
+    board = route("load", {}, lambda f, p: {"storyboard": ssb.load_board(f)})
+    if len(board["storyboard"]["scenes"]) != WORKFLOW_SCENES:
+        raise AssertionError(f"board: {len(board['storyboard']['scenes'])} "
+                             "scenes")
+    edited = board["storyboard"]
+    edited["scenes"][0]["note"] = "open on the pier"
+    route("save", {"storyboard": json.loads(json.dumps(edited).replace(
+        served, "{root}"))}, _ssb_save)
+    route("import_project_start_frames", {"overwrite": False},
+          lambda f, p: ssb.import_project_start_frames(
+              f, bool(p.get("overwrite"))))
+    route("save_scene_upload", {"scene_number": 3, "frame": "end",
+                                "image_data": media["data_url"]},
+          lambda f, p: ssb.save_scene_upload(
+              f, p.get("image_data"), p.get("scene_number"),
+              p.get("frame", "start")))
+    route("save_reference", {"scene_number": 4,
+                             "image_data": media["data_url"]},
+          _ssb_save_reference)
+    route("import_latest", {"scene_number": 5,
+                            "source_path": media["image2"]},
+          lambda f, p: ssb.import_latest(
+              f, p.get("scene_number"), p.get("frame", "start"),
+              source_path=p.get("source_path", ""),
+              downloads_folder=p.get("downloads_folder")))
+    body = route("reimport", {},
+                 lambda f, p: {"storyboard": ssb.reimport_board(f)})
+    route("load", {"project_folder": media["folder"]},
+          lambda f, p: {"storyboard": ssb.load_board(f)}, status=400)
+    image = body["storyboard"]["scenes"][0]["image_path"]
+    _, served_image, _ = srv.call(
+        "GET", "/vrgdg/start_storyboard/image",
+        params={"project_folder": project.replace("{root}", served),
+                "path": image})
+    with open(image, "rb") as handle:
+        if served_image != handle.read():
+            raise AssertionError("the storyboard image route served "
+                                 "other bytes")
+
+
+def _krea2_requests(step, srv, served: str, twin: str, media: dict) -> None:
+    """The Krea2 LoRA Studio's 15 paths: a project, 1080p PNG edit pairs
+    by multipart (one pair of two sizes, one file that holds no image),
+    samples, the XYZ grid, the run plans."""
+    import shutil
+
+    from vrgdg_tpu_torch.api import krea2_studio as k2s
+    from vrgdg_tpu_torch.api import workflow_runner as wr
+    from vrgdg_tpu_torch.runtime import image_io
+
+    base = "/vrgdg/krea2_studio/"
+    project = "{root}/VRGDG_Krea2_Studio/Chip Lora"
+    step("GET", base + "defaults", {},
+         lambda p: k2s.defaults(output_root=twin))
+    step("POST", base + "create_project",
+         {"project_name": "Chip Lora", "sample_prompt": "portrait of zz",
+          "aspect_ratio": "16:9 (Widescreen)"},
+         lambda p: k2s.create_project(p, twin))
+    wide = os.path.join(media["folder"], "wide.png")
+    if not os.path.isfile(wide):
+        _still(wide, WORKFLOW_STILL[0] + 8, WORKFLOW_STILL[1], 1903)
+    with open(wide, "rb") as handle:
+        wide_png = handle.read()
+    # lower-case names: the studio pairs a caption by the image's
+    # lower-cased stem
+    uploads = {
+        "control": [("pair_a.png", media["pngs"][0]),
+                    ("pair_b.png", media["pngs"][1]),
+                    ("pair_c.png", b"not an image at all")],
+        "target": [("pair_a.png", media["pngs"][1]),
+                   ("pair_a.txt", b"make it night"),
+                   ("pair_b.png", wide_png), ("pair_b.txt", b"widen it"),
+                   ("pair_c.png", media["pngs"][0]),
+                   ("pair_c.txt", b"fix it")]}
+    def import_edit(role, files):
+        step.before(served)
+        data, content_type = _multipart_files(
+            [("files", name, blob) for name, blob in files],
+            fields={"project_dir": project.replace("{root}", served),
+                    "role": role})
+        _, body, _ = srv.call("POST", base + "import_edit_files", data=data,
+                              headers={"Content-Type": content_type})
+        step.before(twin)
+        want = {"ok": True, **k2s.import_edit_files(
+            project.replace("{root}", twin), role, files)}
+        want = json.loads(json.dumps(want))
+        if _store_canon(body, served, _WORKFLOW_DROP) \
+                != _store_canon(want, twin, _WORKFLOW_DROP):
+            raise AssertionError(f"import_edit_files {role} differs from "
+                                 "in process")
+        return body
+
+    for role, files in uploads.items():
+        body = import_edit(role, files)
+    problems = body["dataset_sync"]["problems"]
+    unreadable = os.path.join(served, "VRGDG_Krea2_Studio", "Chip Lora",
+                              "dataset", "control", "pair_c.png")
+    if problems != [
+            f"pair_b: control {image_io.image_size(media['image2'])} and "
+            f"target {image_io.image_size(wide)} dimensions differ",
+            f"pair_c: could not validate image dimensions (cannot identify "
+            f"image file {unreadable!r})"]:
+        raise AssertionError(f"edit pair problems: {problems}")
+    step("POST", base + "save_project",
+         {"project_dir": project, "caption_user_notes": "night scenes"},
+         k2s.save_project)
+    step("POST", base + "record_training_result",
+         {"project_dir": project, "latest_lora_path": "/loras/chip.safetensors",
+          "completed_steps": 250, "total_target_steps": 500,
+          "output_name": "chip"}, k2s.record_training_result)
+    step("POST", base + "build_sample_prompt",
+         {"project_dir": project, "strength_model": 0.8},
+         k2s.build_sample_prompt)
+    for root in (served, twin):
+        os.makedirs(os.path.join(root, "samples_out"))
+        for number, path in enumerate((media["image"], media["image2"])):
+            shutil.copyfile(path, os.path.join(root, "samples_out",
+                                               f"render_{number}.png"))
+    for number, steps in enumerate((250, 500)):
+        step("POST", base + "save_sample",
+             {"project_dir": project, "step": steps,
+              "image": {"filename": f"render_{number}.png",
+                        "subfolder": "samples_out"}},
+             lambda p: k2s.save_sample(p, twin))
+    body = step("POST", base + "create_xyz", {"project_dir": project},
+                k2s.create_xyz)
+    _, served_xyz, _ = srv.call("GET", base + "file",
+                                params={"path": body["xyz_path"]})
+    with open(body["xyz_path"].replace(served, twin), "rb") as handle:
+        if served_xyz != handle.read():
+            raise AssertionError("the XYZ grid differs from in process")
+    # the two faulty pairs refuse a run plan until they are replaced
+    step("POST", base + "train_plan", {"project_dir": project},
+         k2s.train_plan, status=400)
+    import_edit("control", [("pair_c.png", media["pngs"][1])])
+    body = import_edit("target", [("pair_b.png", media["pngs"][0])])
+    if body["dataset_sync"]["problems"] or \
+            body["dataset_sync"]["pair_count"] != 3:
+        raise AssertionError(f"edit pairs: {body['dataset_sync']}")
+    step("POST", base + "train_plan", {"project_dir": project},
+         k2s.train_plan)
+    step("POST", base + "training_progress", {"project_dir": project},
+         lambda p: k2s.training_progress(p.get("project_dir", "")))
+    step("POST", base + "list_projects", {},
+         lambda p: k2s.list_projects(p, twin))
+    step("POST", base + "load_project", {"project_dir": project},
+         k2s.load_project)
+
+    def clear_memory(p):
+        path, prompt = wr.load_api_template("clear_memory")
+        return {"workflow_path": path, "prompt": prompt}
+
+    step("POST", base + "build_clear_memory_prompt", {}, clear_memory)
+    srv.call("GET", base + "file", params={"path": media["image"]},
+             status=404)
+
+
+def _workflow_commands(folder: str, media: dict) -> dict:
+    """The ``workflow`` command's ``list`` and one ``build``, each equal
+    to the in-process call; their seconds."""
+    from vrgdg_tpu_torch.api import workflow_runner as wr
+
+    payload = workflow_payloads(np.random.default_rng(WORKFLOW_SEED + 1),
+                                media)["zimage"]
+    seconds, wanted = {}, (
+        (["workflow", "list"],
+         lambda: {"builders": sorted(wr.BUILDERS) + ["clear_memory"],
+                  "templates": dict(wr.TEMPLATES)}),
+        (["workflow", "build", "zimage", "--payload", json.dumps(payload),
+          "--models-root", media["models"]],
+         lambda: wr.build_zimage_prompt(
+             payload, catalog=wr.ModelCatalog(root=media["models"]))))
+    for argv, twin in wanted:
+        started = time.perf_counter()
+        printed = _cli_json(argv)
+        seconds[" ".join(argv[:2])] = round(time.perf_counter() - started, 3)
+        if printed != json.loads(json.dumps(twin(), default=str)):
+            raise AssertionError(f"{' '.join(argv[:3])} prints "
+                                 f"{str(printed)[:300]}")
+    return seconds
+
+
+def workflow_phase(device) -> None:
+    """Phase 19: the workflow runner (with the scene-render routes on a
+    recording runner), the prompt creator, the start storyboard and the
+    Krea2 LoRA Studio by request on the port's server with the card as
+    its device, each request beside the in-process call on a twin root,
+    then the ``workflow`` command; none of the six kernels may launch."""
+    import random
+    import shutil
+
+    from vrgdg_tpu_torch.api import scene_render as sr
+    from vrgdg_tpu_torch.api import workflow_runner as wr
+
+    started = time.perf_counter()
+    real_root = wr.DEFAULT_OUTPUT_ROOT
+    with tempfile.TemporaryDirectory() as folder:
+        served = os.path.join(folder, "served")
+        twin = os.path.join(folder, "twin")
+        os.makedirs(served)
+        os.makedirs(twin)
+        media = _workflow_media(os.path.join(folder, "media"))
+        runners = {served: RecordingRunner(), twin: RecordingRunner()}
+        srv = None
+        with _frozen_store_clocks(BUILDER_CLOCK) as scene_clock:
+
+            def before(root):
+                # each side: its own output root (the default catalog's
+                # model root and MiniMax H3's outputs live there), its own
+                # ffmpeg recording, the clocks and random at their start
+                wr.DEFAULT_OUTPUT_ROOT = root
+                sr.set_ffmpeg_runner(runners[root])
+                scene_clock.reset()
+                random.seed(WORKFLOW_SEED)
+
+            try:
+                srv = _Server(device, served)
+                step = _Twin(srv, served, twin, before=before,
+                             drop=_WORKFLOW_DROP)
+
+                def requests():
+                    found = _workflow_runner_requests(step, srv, served, twin,
+                                                      media, runners)
+                    _prompt_creator_requests(step, srv, served, twin, media)
+                    _start_storyboard_requests(step, srv, served, media)
+                    _krea2_requests(step, srv, served, twin, media)
+                    return found
+
+                found, counts = _counted(requests)
+            finally:
+                if srv is not None:
+                    srv.close()
+                sr.set_ffmpeg_runner(None)
+                wr.set_default_catalog(None)
+                wr.DEFAULT_OUTPUT_ROOT = real_root
+        _expect("workflow requests", counts, {})
+        trees = (_store_tree(served, _WORKFLOW_DROP),
+                 _store_tree(twin, _WORKFLOW_DROP))
+        if trees[0] != trees[1]:
+            names = sorted(set(trees[0]) ^ set(trees[1])) or sorted(
+                name for name in trees[0] if trees[0][name] != trees[1][name])
+            raise AssertionError(f"served and twin roots differ: {names[:8]}")
+        request_s = time.perf_counter() - started
+        wr.DEFAULT_OUTPUT_ROOT = os.path.join(folder, "cli_root")
+        try:
+            command_seconds, counts = _counted(
+                lambda: _workflow_commands(folder, media))
+        finally:
+            wr.set_default_catalog(None)
+            wr.DEFAULT_OUTPUT_ROOT = real_root
+        _expect("workflow command", counts, {})
+    elapsed = time.perf_counter() - started
+    _say("workflow", requests=srv.calls, files=len(trees[0]),
+         vs_twin="equal", kernels="none launched",
+         ffmpeg=f"'{shutil.which('ffmpeg') or 'absent'}'",
+         requests_s=f"{request_s:.2f}",
+         commands=json.dumps(command_seconds, separators=(",", ":")),
+         ffmpeg_commands=found["ffmpeg_commands"],
+         phase_s=f"{elapsed:.2f}", limit_s=WORKFLOW_LIMIT_S)
+    if elapsed > WORKFLOW_LIMIT_S:
+        raise AssertionError(f"phase 19 took {elapsed:.1f} s, over "
+                             f"{WORKFLOW_LIMIT_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3558,6 +4410,7 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + count
     _add(launches, server_phase(device, kind))
     builder_phase(device)
+    workflow_phase(device)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

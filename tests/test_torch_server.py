@@ -13,6 +13,7 @@ agree and two identical requests give the same bytes.
 
 import asyncio
 import base64
+import functools
 import io
 import json
 import os
@@ -44,11 +45,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # route groups of the JAX server the port does not register yet, by path
 # prefix (in the order ROADMAP queues them)
-NOT_PORTED = (
-    "/vrgdg/workflow_runner/", "/vrgdg/krea2_studio/",
-    "/vrgdg/music_prompt_creator/", "/vrgdg/start_storyboard/",
-    "/vrgdg/text_tools/", "/vrgdg/lyrics/", "/vrgdg/llm_batches/",
-    "/vrgdg/graph/")
+NOT_PORTED = ("/vrgdg/text_tools/", "/vrgdg/lyrics/", "/vrgdg/llm_batches/",
+              "/vrgdg/graph/")
+# the groups ported last, with their path counts
+LATEST_GROUPS = {"/vrgdg/workflow_runner/": 30,
+                 "/vrgdg/music_prompt_creator/": 13,
+                 "/vrgdg/start_storyboard/": 8, "/vrgdg/krea2_studio/": 15}
 
 # timings, the device, and the byte size of encoded files (their pixels
 # may differ by a level)
@@ -302,10 +304,20 @@ def test_route_table_equals_the_jax_groups_it_ports():
     left_out = {r for r in jax_table if not _ported(r[1])}
     # every group left out is host-only, none of them is half ported, and
     # each prefix still listed names a JAX route the port lacks
-    assert len(left_out) == len(jax_table) - len(port_table) > 60
+    assert len(left_out) == len(jax_table) - len(port_table) == 14
     assert not any(path == r[1] for r in left_out for _, path in port_table)
     assert all(any(r[1].startswith(prefix) for r in left_out)
                for prefix in NOT_PORTED)
+
+
+def test_route_table_of_the_latest_groups_equals_the_jax_apps():
+    jax_table = _routes(jax_create_app())
+    port_table = _routes(tserver.create_app(device="cpu"))
+    for prefix, count in LATEST_GROUPS.items():
+        ours = {r for r in port_table if r[1].startswith(prefix)}
+        assert ours == {r for r in jax_table if r[1].startswith(prefix)}
+        assert len(ours) == count, prefix
+    assert sum(LATEST_GROUPS.values()) == 66
 
 
 def test_panel_routes_of_the_ported_groups_are_registered():
@@ -342,7 +354,7 @@ def test_catalog_health_and_ui(pair):
     assert status == 404
     # a group not ported yet, and a method a route does not take
     assert clients["port"].request(
-        "GET", "/vrgdg/music_prompt_creator/list_drafts")[0] == 404
+        "POST", "/vrgdg/llm_batches/plan", json_body={})[0] == 404
     assert clients["port"].request("GET", "/vrgdg/compare/video")[0] == 405
 
 
@@ -1430,3 +1442,175 @@ def test_concurrent_requests_give_their_lone_bytes(tmp_path, media):
             np.testing.assert_array_equal(_decode(got), _decode(want))
     finally:
         client.close()
+
+
+# --------------------------------------------------------------------------
+# the workflow runner, prompt creator, start storyboard and Krea2 groups
+# --------------------------------------------------------------------------
+
+@pytest.fixture()
+def latest(pair, media, monkeypatch, tmp_path):
+    """The pair with the new groups' clocks frozen, one fake model root
+    for both default catalogs, and no ingest folder from the
+    environment."""
+    import chip_smoke as cs
+    from tests.test_torch_builder import freeze_clocks
+    from vrgdg_tpu.api import (krea2_studio, prompt_creator,
+                               start_storyboard, workflow_runner)
+    from vrgdg_tpu.runtime import text_tools
+    from vrgdg_tpu_torch.api import krea2_studio as t_k2s
+    from vrgdg_tpu_torch.api import prompt_creator as t_pcr
+    from vrgdg_tpu_torch.api import start_storyboard as t_ssb
+    from vrgdg_tpu_torch.api import workflow_runner as t_wr
+    from vrgdg_tpu_torch.runtime import text_tools as t_tt
+
+    freeze_clocks(monkeypatch, [krea2_studio, prompt_creator,
+                                start_storyboard, workflow_runner,
+                                text_tools, t_k2s, t_pcr, t_ssb, t_wr, t_tt])
+    models = cs.workflow_model_root(str(tmp_path / "models"), 3)
+    monkeypatch.setenv("VRGDG_TPU_MODELS", models)
+    monkeypatch.delenv("VRGDG_TPU_INPUT", raising=False)
+    for module in (workflow_runner, t_wr):
+        module.set_default_catalog(None)
+    clients, tmp = pair
+    yield clients, tmp, models
+    for module in (workflow_runner, t_wr):
+        module.set_default_catalog(None)
+
+
+# file times, and the Krea2 dataset's hash over them
+LATEST_VOLATILE = STORE_VOLATILE | {"signature"}
+
+
+def _each(clients, tmp, method, path, body_for, shared=()):
+    """One request to each server with a body of its own
+    (``body_for(name) -> (data, content type)``), answers compared."""
+    replies = {}
+    for name, client in clients.items():
+        data, content_type = body_for(name)
+        replies[name] = client.request(method, path, data=data,
+                                       headers={"Content-Type":
+                                                content_type})
+    _agree(replies["jax"], replies["port"], tmp, shared, LATEST_VOLATILE)
+    return replies["jax"], replies["port"]
+
+
+def test_workflow_runner_and_prompt_creator_routes_agree(latest, media):
+    clients, tmp, models = latest
+    shared = (media["folder"], models)
+    call = functools.partial(both, clients, tmp, shared=shared,
+                             volatile=LATEST_VOLATILE)
+    (_, body), _ = call("GET", "/vrgdg/workflow_runner/builders")
+    assert len(body["builders"]) == 17
+    (_, body), _ = call("GET", "/vrgdg/workflow_runner/model_root")
+    assert body["source"] == "env" and body["registered"]
+    (_, body), _ = call("GET", "/vrgdg/workflow_runner/lora_list")
+    assert body["loras"][0] == "[none]" and len(body["loras"]) == 9
+    (_, body), (_, ours) = call(
+        "POST", "/vrgdg/workflow_runner/build_flux_klein_prompt",
+        json_body={"prompt": "two subjects dancing", "seed": 7,
+                   "width": 640, "height": 360,
+                   "image_ingredients": [{"path": media["still"]}],
+                   "use_custom_loras": True, "lora_count": 1,
+                   "lora_1": "a.safetensors"})
+    assert body["ok"] and ours["prompt"] == body["prompt"]
+    # a refusal: its 400 error body
+    (status, body), _ = call("POST", "/vrgdg/workflow_runner/model_root",
+                             json_body={"models_root": "{base}/missing"})
+    assert status == 400 and "not a directory" in body["error"]
+    (status, body), _ = call(
+        "POST", "/vrgdg/workflow_runner/trim_scene_video",
+        json_body={"source_path": "{base}/none.mp4",
+                   "project_folder": "{base}/p"})
+    assert status == 404 and not body["ok"]
+
+    # the prompt creator's multipart audio import, then its drafts
+    with open(media["wav"], "rb") as handle:
+        wav = handle.read()
+
+    def upload(name):
+        return _multipart([("project_folder", None, str(
+            tmp / name / "Http Prompts").encode()),
+            ("audio", "My Song!.wav", wav)])
+
+    (_, body), _ = _each(clients, tmp, "POST",
+                         "/vrgdg/music_prompt_creator/import_audio", upload)
+    assert body["audio_name"] == "My Song.wav"
+    (_, body), _ = call("POST", "/vrgdg/music_prompt_creator/save_draft",
+                        json_body={"project_folder": "{base}/Http Prompts",
+                                   "full_lyrics": "la la",
+                                   "srt_text": "1\n00:00:00,000 --> "
+                                               "00:00:02,000\nla la\n"})
+    assert body["ok"]
+    (_, body), _ = call("GET", "/vrgdg/music_prompt_creator/list_drafts")
+    assert [p["name"] for p in body["projects"]] == ["Http Prompts"]
+    (_, body), _ = call("POST",
+                        "/vrgdg/music_prompt_creator/get_instruction",
+                        json_body={"project_folder": "{base}/Http Prompts",
+                                   "key": "style_theme"})
+    assert body["ok"]
+
+
+def test_start_storyboard_and_krea2_routes_agree(latest, media):
+    clients, tmp, models = latest
+    shared = (media["folder"],)
+    call = functools.partial(both, clients, tmp, shared=shared,
+                             volatile=LATEST_VOLATILE)
+    # a builder project, then its start storyboard
+    call("POST", "/vrgdg/music_builder/new_project",
+         json_body={"project_name": "Http Board"})
+    call("POST", "/vrgdg/music_builder/save_session",
+         json_body={"project_folder": "{base}/Http Board", "session": {
+             "segments": [{"id": f"s{n}", "lyric_text": f"line {n}"}
+                          for n in range(1, 4)]}})
+    (_, body), _ = call("POST", "/vrgdg/start_storyboard/load",
+                        json_body={"project_folder": "{base}/Http Board"})
+    assert len(body["storyboard"]["scenes"]) == 3
+    (_, body), _ = call("POST", "/vrgdg/start_storyboard/import_latest",
+                        json_body={"project_folder": "{base}/Http Board",
+                                   "scene_number": 2,
+                                   "source_path": media["still"]})
+    image = body["saved_path"]
+    (_, theirs), (_, ours) = [
+        (client.request("GET", "/vrgdg/start_storyboard/image", params={
+            "project_folder": str(tmp / name / "Http Board"),
+            "path": image.replace(str(tmp / "jax"), str(tmp / name))}))
+        for name, client in clients.items()]
+    assert ours == theirs and ours[:4] == b"\x89PNG"
+    (status, body), _ = call("POST", "/vrgdg/start_storyboard/load",
+                             json_body={"project_folder": media["folder"]})
+    assert status == 400 and "not a Video Builder project" in body["error"]
+
+    # Krea2: a project, edit pairs by multipart (two sizes, no image)
+    call("POST", "/vrgdg/krea2_studio/create_project",
+         json_body={"project_name": "Http Lora"})
+    ok, png = cv2.imencode(".png", np.zeros((24, 32, 3), np.uint8))
+    ok, tall = cv2.imencode(".png", np.zeros((30, 32, 3), np.uint8))
+
+    def pairs(role, files):
+        def body(name):
+            return _multipart(
+                [("project_dir", None, str(tmp / name / "VRGDG_Krea2_Studio"
+                                           / "Http_Lora").encode()),
+                 ("role", None, role.encode())]
+                + [("files", filename, data) for filename, data in files])
+        return body
+
+    _each(clients, tmp, "POST", "/vrgdg/krea2_studio/import_edit_files",
+          pairs("control", [("a.png", png.tobytes()),
+                            ("b.png", b"no image here")]))
+    (_, body), (_, ours) = _each(
+        clients, tmp, "POST", "/vrgdg/krea2_studio/import_edit_files",
+        pairs("target", [("a.png", tall.tobytes()), ("a.txt", b"x"),
+                         ("b.png", png.tobytes()), ("b.txt", b"y")]))
+    problems = ours["dataset_sync"]["problems"]
+    assert problems[0] == "a: control (32, 24) and target (32, 30) " \
+        "dimensions differ"
+    assert problems[1].startswith("b: could not validate image dimensions "
+                                  "(cannot identify image file")
+    (_, body), _ = call("POST",
+                        "/vrgdg/krea2_studio/build_clear_memory_prompt")
+    assert body["prompt"]
+    (status, _), _ = call("GET", "/vrgdg/krea2_studio/file",
+                          params={"path": media["still"]})
+    assert status == 404

@@ -26,6 +26,8 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
   builder  — music video builder project store: new, list, load, save,
              delete, export, import, scan, analyze, mix (host)
   humo     — HuMo set pipeline: plan, split-set, chunk, final, grid (host)
+  workflow — workflow-runner prompt builders: build, list, lora-list,
+             choices (host; executor-ready JSON)
   serve    — the HTTP API server (``vrgdg_tpu_torch.server``) on the device
 
 ``--device`` defaults to ``cuda``; on a machine without a card the command
@@ -353,6 +355,39 @@ def _humo(args) -> None:
                 "frames": int(frames.shape[0]), "tiles": len(sources)})
 
 
+def _workflow(args, parser) -> None:
+    from .api import workflow_runner as wr
+
+    catalog = (wr.ModelCatalog(root=args.models_root)
+               if args.models_root else None)
+    if args.action == "list":
+        result = {"builders": sorted(wr.BUILDERS) + ["clear_memory"],
+                  "templates": dict(wr.TEMPLATES)}
+    elif args.action == "lora-list":
+        result = wr.lora_list(catalog)
+    elif args.action == "choices":
+        result = wr.i2v_choices(catalog)
+    elif args.builder == "clear_memory":
+        result = wr.build_clear_memory_prompt()
+    else:
+        if args.builder not in wr.BUILDERS:
+            parser.error(f"unknown builder {args.builder!r}; "
+                         "see 'workflow list'")
+        text = args.payload
+        if text.startswith("@"):
+            with open(text[1:], encoding="utf-8") as handle:
+                text = handle.read()
+        payload = json.loads(text) if text else {}
+        result = wr.BUILDERS[args.builder](payload, catalog=catalog)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as handle:
+            json.dump(result, handle, indent=2, default=str)
+        _print({"output": os.path.abspath(args.output),
+                "builder": args.builder or args.action})
+    else:
+        _print(result)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
         prog="vrgdg-tpu-torch",
@@ -572,6 +607,21 @@ def main(argv=None):
                    help="output folder (split-set, chunk) / video path "
                         "(grid)")
 
+    p = sub.add_parser(
+        "workflow",
+        help="workflow-runner prompt builders (executor-ready JSON)")
+    p.add_argument("action", choices=["build", "list", "lora-list",
+                                      "choices"])
+    p.add_argument("builder", nargs="?", default="",
+                   help="builder key for 'build' (see 'workflow list')")
+    p.add_argument("--payload", default="",
+                   help="JSON payload text or @file path")
+    p.add_argument("--models-root", default=None,
+                   help="model catalog root (else VRGDG_TPU_MODELS / "
+                        "persisted model_root)")
+    p.add_argument("-o", "--output", default="",
+                   help="write the result JSON here instead of stdout")
+
     p = sub.add_parser("serve", help="run the HTTP API server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8431)
@@ -601,6 +651,9 @@ def main(argv=None):
                      "audio": _audio, "builder": _builder, "humo": _humo}
     if args.command in host_commands:
         host_commands[args.command](args)
+        return
+    if args.command == "workflow":
+        _workflow(args, parser)
         return
 
     from .api import appliers

@@ -19,6 +19,16 @@ goes through them:
   is not cv2's ``INTER_LANCZOS4`` (4 lobes, float weights, no widening on
   a downscale).
 
+Two readers stand in for Pillow where it only measures an image:
+
+- :func:`channel_stats` is ``ImageStat.Stat(Image.open(path).convert(
+  "RGB"))``'s ``mean`` and ``stddev``, to the bit: Pillow's float64
+  sums over the 256-bin histogram, in its order;
+- :func:`image_size` is ``Image.open(path).size``: ``(width, height)``
+  from the file's header alone (PNG, JPEG, GIF, WebP, BMP, TIFF), EXIF
+  orientation ignored as Pillow's lazy open does, and Pillow's message
+  for a file that holds none of these.
+
 cv2 is imported where it is used, so the package imports without it.
 """
 
@@ -26,6 +36,9 @@ from __future__ import annotations
 
 import math
 import os
+import struct
+import zlib
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -188,3 +201,168 @@ def pil_lanczos_resize(u8: np.ndarray, width: int, height: int) -> np.ndarray:
     if height != u8.shape[0]:
         out = _resample_axis(out, 0, height)
     return out.copy() if out is u8 else out
+
+
+def channel_stats(path) -> SimpleNamespace:
+    """``mean`` and ``stddev`` (lists of 3 floats) of the image's R, G and
+    B, as Pillow's ``ImageStat.Stat(Image.open(path).convert("RGB"))``
+    gives them: from each channel's 256-bin histogram, ``sum`` and
+    ``sum2`` accumulated in bin order as Python floats, ``mean = sum / n``
+    and ``stddev = sqrt((sum2 - sum ** 2 / n) / n)``.  numpy's ``mean`` and
+    ``std`` sum in another order and differ in the last bits."""
+    rgb = read_rgb(path)
+    means, stddevs = [], []
+    for channel in range(3):
+        histogram = np.bincount(rgb[..., channel].ravel(),
+                                minlength=256).tolist()
+        count = sum(histogram)
+        total, total2 = 0.0, 0.0
+        for level in range(256):
+            total += level * histogram[level]
+        for level in range(256):
+            total2 += (level ** 2) * float(histogram[level])
+        means.append(total / count if count else 0)
+        variance = (total2 - (total ** 2.0) / count) / count if count else 0
+        stddevs.append(math.sqrt(variance))
+    return SimpleNamespace(mean=means, stddev=stddevs)
+
+
+# JPEG start-of-frame markers: every SOFn but DHT (C4), JPG (C8), DAC (CC)
+_JPEG_SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
+
+
+def _png_size(head: bytes):
+    if head[12:16] == b"IHDR" and len(head) < 29:
+        # Pillow reads the header chunk whole or raises this
+        raise OSError("Truncated File Read")
+    if len(head) < 33 or head[12:16] != b"IHDR":
+        return None
+    if zlib.crc32(head[12:29]) != struct.unpack(">I", head[29:33])[0]:
+        return None
+    return struct.unpack(">II", head[16:24])
+
+
+def _jpeg_size(handle):
+    """The last start-of-frame's size, read as Pillow's JPEG plugin reads
+    the header: marker by marker up to the start of scan, bytes between
+    markers skipped; None when the header ends first."""
+    handle.seek(3)
+    size, lead = None, b"\xff"
+    while lead:
+        if lead[0] != 0xFF:
+            lead = handle.read(1)
+            continue
+        code = handle.read(1)
+        if not code:
+            return None
+        code = code[0]
+        if code == 0xFF:
+            continue
+        if code == 0x00 or 0xD0 <= code <= 0xD9:
+            lead = handle.read(1)
+            continue
+        length = handle.read(2)
+        if len(length) < 2:
+            return None
+        wanted = struct.unpack(">H", length)[0] - 2
+        segment = handle.read(wanted)
+        if len(segment) < wanted:
+            # Pillow reads each segment whole or raises this
+            raise OSError("Truncated File Read")
+        if code in _JPEG_SOF:
+            if len(segment) < 5:
+                return None
+            height, width = struct.unpack(">HH", segment[1:5])
+            size = (width, height)
+        if code == 0xDA:
+            return size
+        lead = handle.read(1)
+    return None
+
+
+def _webp_size(head: bytes):
+    chunk = head[12:16]
+    if chunk == b"VP8 " and head[23:26] == b"\x9d\x01\x2a":
+        width, height = struct.unpack("<HH", head[26:30])
+        return width & 0x3FFF, height & 0x3FFF
+    if chunk == b"VP8L" and head[20:21] == b"\x2f":
+        bits = int.from_bytes(head[21:25], "little")
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    if chunk == b"VP8X" and len(head) >= 30:
+        return (int.from_bytes(head[24:27], "little") + 1,
+                int.from_bytes(head[27:30], "little") + 1)
+    return None
+
+
+def _bmp_size(head: bytes):
+    header_size = struct.unpack("<I", head[14:18])[0]
+    if header_size == 12:
+        return struct.unpack("<HH", head[18:22])
+    if header_size in (40, 52, 56, 64, 108, 124):
+        width, height = struct.unpack("<iI", head[18:26])
+        # a top-down bitmap stores its height negative
+        return width, (2 ** 32 - height if head[25] == 0xFF else height)
+    return None
+
+
+def _tiff_size(handle, head: bytes):
+    order = "<" if head[:2] == b"II" else ">"
+    big = head[2:4] in (b"+\x00", b"\x00+")
+    if big:
+        offset = struct.unpack(order + "Q", head[8:16])[0]
+        count_format, entry_size, value_at = "Q", 20, 12
+    else:
+        offset = struct.unpack(order + "I", head[4:8])[0]
+        count_format, entry_size, value_at = "H", 12, 8
+    handle.seek(offset)
+    raw = handle.read(struct.calcsize(count_format))
+    if len(raw) < struct.calcsize(count_format):
+        return None
+    tags = {}
+    for _ in range(struct.unpack(order + count_format, raw)[0]):
+        entry = handle.read(entry_size)
+        if len(entry) < entry_size:
+            return None
+        tag, kind = struct.unpack(order + "HH", entry[:4])
+        if tag in (256, 257, 274) and kind in (3, 4):
+            value = entry[value_at:value_at + (2 if kind == 3 else 4)]
+            tags[tag] = struct.unpack(order + ("H" if kind == 3 else "I"),
+                                      value)[0]
+    if 256 not in tags or 257 not in tags:
+        return None
+    width, height = tags[256], tags[257]
+    # Pillow reports a TIFF's size with its orientation tag applied
+    return (height, width) if tags.get(274) in (5, 6, 7, 8) \
+        else (width, height)
+
+
+def image_size(path) -> tuple[int, int]:
+    """``(width, height)`` from the image file's header, as Pillow's lazy
+    ``Image.open(path).size``: no pixel data is read, so a file whose
+    pixel data is cut short still has a size, and EXIF orientation is
+    ignored (a TIFF's own orientation tag is not, as in Pillow).  A file
+    that is none of PNG, JPEG, GIF, WebP, BMP or TIFF raises ``OSError``
+    with Pillow's message."""
+    path = os.fspath(path)
+    size = None
+    with open(path, "rb") as handle:
+        head = handle.read(64)
+        try:
+            if head[:8] == _PNG_SIGNATURE:
+                size = _png_size(head)
+            elif head[:3] == b"\xff\xd8\xff":
+                size = _jpeg_size(handle)
+            elif head[:6] in (b"GIF87a", b"GIF89a"):
+                size = struct.unpack("<HH", head[6:10])
+            elif head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+                size = _webp_size(head)
+            elif head[:2] == b"BM" and len(head) >= 26:
+                size = _bmp_size(head)
+            elif head[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00",
+                              b"MM\x00+"):
+                size = _tiff_size(handle, head)
+        except struct.error:
+            size = None
+    if size is None or size[0] <= 0 or size[1] <= 0:
+        raise OSError("cannot identify image file %r" % path)
+    return int(size[0]), int(size[1])

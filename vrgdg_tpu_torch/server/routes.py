@@ -21,13 +21,18 @@ module at a time):
   ``/vrgdg/test_popup/`` and the builder's ``load_text_file`` /
   ``save_text_file``), ``/vrgdg/storyboard/``, ``/vrgdg/video_editor/``
   and ``/vrgdg/lora_dataset/``: host-only, they reach no device;
+- the workflow runner ``/vrgdg/workflow_runner/`` (30 paths: the prompt
+  builders, the model root, the scene-audio trim and the scene-render
+  routes, whose ffmpeg calls go through ``scene_render``'s runner seam),
+  the prompt creator ``/vrgdg/music_prompt_creator/`` (13),
+  ``/vrgdg/start_storyboard/`` (8) and the Krea2 LoRA Studio
+  ``/vrgdg/krea2_studio/`` (15): host-only as well;
 - ``/vrgdg/health``, ``/vrgdg/update/status``,
   ``/vrgdg/node_canvas/status``, the panel at ``/vrgdg/ui`` and the ``/``
   redirect to it.
 
 Not registered yet (their requests get 404): lyrics and LLM batches,
-combined files, prompt creator, start storyboard, Krea2 LoRA Studio, text
-pickers, graph plans and the workflow runner.  They are host-only and
+combined files, text pickers and graph plans.  They are host-only and
 reach no device.
 
 Every handler that reaches the device takes the app's one device, which
@@ -45,6 +50,7 @@ import asyncio
 import functools
 import logging
 import os
+import subprocess
 import time
 import uuid
 from dataclasses import dataclass
@@ -56,10 +62,16 @@ from .. import __version__
 from ..api import appliers, compare, paths
 from ..api import builder as mvb
 from ..api import instructions as instr
+from ..api import krea2_studio as k2s
 from ..api import lora_dataset as lds
+from ..api import pc_instructions as pci
+from ..api import prompt_creator as pcr
+from ..api import scene_render
+from ..api import start_storyboard as ssb
 from ..api import storyboard as sbd
 from ..api import text_files as tfl
 from ..api import video_editor as ved
+from ..api import workflow_runner
 from ..jobs import enhancer as enh
 from ..jobs import face_fix as ff
 from ..release_notes import latest_release, load_release_notes
@@ -843,6 +855,265 @@ def _lora_dataset_routes(routes, ctx: _Context) -> None:
     route("/vrgdg/lora_dataset/list", lds.list_dataset)
 
 
+def _workflow_runner_routes(routes, ctx: _Context) -> None:
+    """The prompt builders for an external ComfyUI-style executor, the
+    model root, and the scene-render routes (ffmpeg through
+    ``scene_render``'s runner seam)."""
+    base = ctx.base_folder
+
+    @routes.get("/vrgdg/workflow_runner/lora_list")
+    @_handler
+    def wr_lora_list(request):
+        return _ok(**workflow_runner.lora_list())
+
+    @routes.get("/vrgdg/workflow_runner/i2v_choices")
+    @_handler
+    def wr_i2v_choices(request):
+        return _ok(**workflow_runner.i2v_choices())
+
+    @routes.get("/vrgdg/workflow_runner/builders")
+    @_handler
+    def wr_builders(request):
+        # one row per build_<key>_prompt route; clear_memory is registered
+        # on its own below but is a builder to callers
+        return _ok(builders=sorted(
+            list(workflow_runner.BUILDERS) + ["clear_memory"]))
+
+    @routes.get("/vrgdg/workflow_runner/model_root")
+    @_handler
+    def wr_model_root(request):
+        result = workflow_runner.load_model_root(base)
+        # "registered": whether the root resolves to a folder
+        result["registered"] = bool(
+            result.get("models_root")
+            and os.path.isdir(result["models_root"]))
+        return _ok(**result)
+
+    @routes.post("/vrgdg/workflow_runner/model_root")
+    @_handler
+    async def wr_save_model_root(request):
+        payload = await _json(request)
+        result = workflow_runner.save_model_root(
+            payload.get("models_root", ""), base)
+        workflow_runner.set_default_catalog(None)  # re-scan on next use
+        return _ok(**result)
+
+    route = functools.partial(_json_route, routes, flat=True)
+    for key, build in workflow_runner.BUILDERS.items():
+        route(f"/vrgdg/workflow_runner/build_{key}_prompt",
+              functools.partial(lambda p, build: build(p, base=base),
+                                build=build))
+
+    @routes.post("/vrgdg/workflow_runner/build_clear_memory_prompt")
+    @_handler
+    def wr_build_clear_memory(request):
+        return _ok(**workflow_runner.build_clear_memory_prompt())
+
+    route("/vrgdg/workflow_runner/prepare_scene_audio_clip",
+          lambda p: workflow_runner.prepare_scene_audio_clip(p, base=base))
+
+    def scene_route(name, fn):
+        @routes.post(f"/vrgdg/workflow_runner/{name}")
+        @_handler
+        async def handler(request):
+            payload = await _json(request)
+            try:
+                result = await asyncio.get_running_loop().run_in_executor(
+                    None, fn, payload)
+            except subprocess.CalledProcessError as exc:
+                error = exc.stderr or exc.output or str(exc)
+                return _err(RuntimeError(f"FFmpeg failed:\n{error}"))
+            return _ok(**result)
+
+    for name, fn in (
+            ("collect_scene_video", scene_render.collect_scene_video),
+            ("match_scene_video_start_color",
+             scene_render.match_scene_start_color),
+            ("trim_scene_video", scene_render.trim_scene_video),
+            ("find_scene_video_output",
+             scene_render.find_scene_video_output),
+            ("stitch_scene_videos", scene_render.stitch_scene_videos),
+            ("render_image_slideshow",
+             scene_render.render_image_slideshow)):
+        scene_route(name, fn)
+
+    route("/vrgdg/workflow_runner/save_image",
+          lambda p: scene_render.save_generated_image(p, base=base))
+
+
+def _prompt_creator_routes(routes, ctx: _Context) -> None:
+    """Prompt-creator drafts and outputs (the builder imports them), its
+    instruction store and the hidden Whisper workflow builder."""
+    out_root = ctx.out_root
+
+    def route(name, fn):
+        _json_route(routes, "/vrgdg/music_prompt_creator/" + name, fn,
+                    flat=True)
+
+    route("save_outputs", lambda p: pcr.save_outputs(p, out_root))
+    route("save_draft", lambda p: pcr.save_draft(p, out_root))
+    route("load_draft", lambda p: pcr.load_draft(p, out_root))
+
+    @routes.get("/vrgdg/music_prompt_creator/list_drafts")
+    @_handler
+    def pc_list_drafts(request):
+        return _ok(**pcr.list_drafts(out_root))
+
+    route("get_instruction", lambda p: pci.get_instruction(p, out_root))
+    route("save_instruction", lambda p: pci.save_instruction(p, out_root))
+    route("reset_instruction", lambda p: pci.reset_instruction(p, out_root))
+    route("list_instruction_presets",
+          lambda p: pci.list_presets(p, out_root))
+    route("save_instruction_preset", lambda p: pci.save_preset(p, out_root))
+    route("load_instruction_preset", lambda p: pci.load_preset(p, out_root))
+    route("build_whisper_prompt",
+          lambda p: pcr.build_whisper_prompt(p, out_root))
+
+    @routes.get("/vrgdg/music_prompt_creator/config")
+    @_handler
+    def pc_config(request):
+        return _ok(**pcr.config(out_root))
+
+    @routes.post("/vrgdg/music_prompt_creator/import_audio")
+    @_handler
+    async def pc_import_audio(request):
+        reader = await request.multipart()
+        project_folder, audio_name, chunks = "", "", []
+        async for part in reader:
+            if part.name == "project_folder":
+                project_folder = (await part.text()).strip()
+            elif part.name == "audio":
+                audio_name = part.filename or "prompt_creator_audio.wav"
+                await _drain_part(part, chunks.append)
+                break
+        return _ok(**await asyncio.get_running_loop().run_in_executor(
+            None, pcr.import_audio, project_folder, audio_name,
+            b"".join(chunks), out_root))
+
+
+def _ssb_save(folder, payload):
+    ssb.save_board(folder, payload.get("storyboard") or {})
+    return {"storyboard": ssb.load_board(folder)}
+
+
+def _ssb_save_reference(folder, payload):
+    result = ssb.save_reference(folder, payload.get("image_data"),
+                                payload.get("scene_number"))
+    result["storyboard"] = ssb.load_board(folder)
+    return result
+
+
+def _start_storyboard_routes(routes, ctx: _Context) -> None:
+    """The per-scene start/end frame board inside a builder project."""
+
+    def route(name, fn):
+        # the folder's check stats the disk, so it runs in the executor
+        _json_route(routes, "/vrgdg/start_storyboard/" + name,
+                    lambda p: fn(ssb.project_folder(p.get("project_folder")),
+                                 p), flat=True)
+
+    route("load", lambda f, p: {"storyboard": ssb.load_board(f)})
+    route("reimport", lambda f, p: {"storyboard": ssb.reimport_board(f)})
+    route("save", _ssb_save)
+    route("import_latest",
+          lambda f, p: ssb.import_latest(
+              f, p.get("scene_number"), p.get("frame", "start"),
+              source_path=p.get("source_path", ""),
+              downloads_folder=p.get("downloads_folder")))
+    route("import_project_start_frames",
+          lambda f, p: ssb.import_project_start_frames(
+              f, bool(p.get("overwrite"))))
+    route("save_reference", _ssb_save_reference)
+    route("save_scene_upload",
+          lambda f, p: ssb.save_scene_upload(
+              f, p.get("image_data"), p.get("scene_number"),
+              p.get("frame", "start")))
+
+    @routes.get("/vrgdg/start_storyboard/image")
+    @_handler
+    def ssb_image(request):
+        folder = ssb.project_folder(request.query.get("project_folder"))
+        path = os.path.abspath(str(request.query.get("path") or "").strip())
+        if not os.path.isfile(path) or not any(
+                paths._inside(root, path) for root in ssb.image_roots(folder)):
+            raise FileNotFoundError("Storyboard image was not found.")
+        return web.FileResponse(path)
+
+
+async def _k2s_import(request):
+    """The multipart body of a Krea2 import: ``(project_dir, role,
+    [(filename, bytes), ...])``."""
+    reader = await request.multipart()
+    project_dir, role, uploads = "", "", []
+    async for part in reader:
+        if part.name == "project_dir":
+            project_dir = (await part.text()).strip()
+        elif part.name == "role":
+            role = (await part.text()).strip()
+        elif part.filename:
+            chunks = []
+            await _drain_part(part, chunks.append)
+            uploads.append((part.filename, b"".join(chunks)))
+    return project_dir, role, uploads
+
+
+def _krea2_studio_routes(routes, ctx: _Context) -> None:
+    """The Krea2 LoRA Studio's project and dataset store, imports,
+    samples, XYZ grid, progress parse and run plans."""
+    out_root = ctx.out_root
+
+    def route(name, fn):
+        _json_route(routes, "/vrgdg/krea2_studio/" + name, fn, flat=True)
+
+    @routes.get("/vrgdg/krea2_studio/defaults")
+    @_handler
+    def k2s_defaults(request):
+        return _ok(**k2s.defaults(output_root=out_root))
+
+    route("create_project", lambda p: k2s.create_project(p, out_root))
+    route("load_project", k2s.load_project)
+    route("list_projects", lambda p: k2s.list_projects(p, out_root))
+    route("save_project", k2s.save_project)
+    route("training_progress",
+          lambda p: k2s.training_progress(p.get("project_dir", "")))
+    route("build_sample_prompt", k2s.build_sample_prompt)
+    route("save_sample", lambda p: k2s.save_sample(p, out_root))
+    route("create_xyz", k2s.create_xyz)
+    route("train_plan", k2s.train_plan)
+    route("record_training_result", k2s.record_training_result)
+
+    @routes.post("/vrgdg/krea2_studio/build_clear_memory_prompt")
+    @_handler
+    async def k2s_clear_memory_prompt(request):
+        path, prompt = workflow_runner.load_api_template("clear_memory")
+        return _ok(workflow_path=path, prompt=prompt)
+
+    @routes.post("/vrgdg/krea2_studio/import_files")
+    @_handler
+    async def k2s_import_files(request):
+        project_dir, _role, uploads = await _k2s_import(request)
+        return _ok(**await asyncio.get_running_loop().run_in_executor(
+            None, k2s.import_files, project_dir, uploads))
+
+    @routes.post("/vrgdg/krea2_studio/import_edit_files")
+    @_handler
+    async def k2s_import_edit_files(request):
+        project_dir, role, uploads = await _k2s_import(request)
+        return _ok(**await asyncio.get_running_loop().run_in_executor(
+            None, k2s.import_edit_files, project_dir, role, uploads))
+
+    @routes.get("/vrgdg/krea2_studio/file")
+    @_handler
+    def k2s_file(request):
+        path = os.path.normpath(os.path.abspath(
+            str(request.query.get("path") or "").strip()))
+        # only images under the managed root are served
+        if not paths._inside(out_root, path) or not os.path.isfile(path) \
+                or os.path.splitext(path)[1].lower() not in k2s.IMAGE_EXTS:
+            raise FileNotFoundError("Not found")
+        return web.FileResponse(path)
+
+
 def _status_routes(routes, ctx: _Context) -> None:
     @routes.get("/vrgdg/health")
     @_handler
@@ -888,7 +1159,9 @@ def _ui_routes(routes, ctx: _Context) -> None:
 _ROUTE_GROUPS = (_enhancer_routes, _lut_grain_adjust_routes, _audio_routes,
                  _compare_routes, _face_fix_routes, _builder_routes,
                  _text_file_routes, _storyboard_routes, _video_editor_routes,
-                 _lora_dataset_routes, _status_routes, _ui_routes)
+                 _lora_dataset_routes, _status_routes, _ui_routes,
+                 _workflow_runner_routes, _prompt_creator_routes,
+                 _start_storyboard_routes, _krea2_studio_routes)
 
 
 def create_app(base_folder: str | None = None, luts_dir: str | None = None,
