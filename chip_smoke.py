@@ -70,14 +70,14 @@ Phases, one line each (any failure raises and the exit code is not 0):
     decode / device / encode split.  No TPU kernel lies on this path: its
     run must launch none of the six;
 15. face repair and the secondary ops (cv2 with ``FaceDetectorYN`` is
-    required): on a seeded 72-frame 1080p clip at 24 fps of the cartoon
+    required): on a seeded 36-frame 1080p clip at 24 fps of the cartoon
     face of tests/test_face_detector.py (at 0.6x its 480p size) panning
     over noise, the Face Fix job with the real YuNet detector (prepare,
     enhanced anchors and 8n+1-trimmed LTX frames from a seeded affine
     tweak of the crops, finalize on the card and on the CPU: composited
     PNGs one level apart on <= 0.1% of values), with its prepare /
     composite / encode seconds, the composite's ms a frame by CUDA events
-    and the host cost of a miss of the weight-matrix cache; ``run_face_fix_pipeline`` on the 72-frame batch
+    and the host cost of a miss of the weight-matrix cache; ``run_face_fix_pipeline`` on the 36-frame batch
     (wall time and breakdown; crops <= 2e-5 and composite <= 1e-4 against
     the CPU); the ``face-repair`` command's four actions with a manual box
     and with YuNet (composite card vs CPU, rebuilt frame count exact); a
@@ -159,11 +159,30 @@ Phases, one line each (any failure raises and the exit code is not 0):
     must be exact, then replaced), samples, the XYZ grid and run plans;
     then the ``workflow`` command's ``list`` and a ``build``.  The roots
     must end as equal trees, none of the six kernels may launch, and the
-    phase must end within 45 s.
+    phase must end within 45 s;
+20. lyrics, LLM batches, text pickers and graph plans by request on the
+    same server, each answer equal to the in-process call on a twin root:
+    a seeded 4-minute song in the ASR word-JSON contract (about 640 words
+    in 80 segments, 60 reference lines) through ``lyrics/timestamped`` in
+    the five segment modes (one with gaps off too) and ``lyrics/sheet``
+    for a 60-scene SRT with a backup transcription; 60 story groups at
+    batch size 10 through six plan/save rounds, combine, split (of damaged
+    prompt JSON), the two combined-file GETs, a remake edit and the remake
+    indexes, and a folder outside the managed root refused; pickers over
+    500 lines in each selection mode and ``multi_pick``; the graph's LoRA
+    and state plans.  The two-pass plan of eight LoRAs is applied by
+    ``ops.lora.apply_lora_plan`` to a 4096 x 4096 weight with rank-16
+    pairs on the card, within 1e-5 relative of the same call on the CPU,
+    with its CUDA-event ms; the LUT examples tool grades its 18 frames on
+    the card (within 1e-5 of the CPU) into a temporary folder; and the
+    ``lyrics``, ``llm-batch`` (four actions) and ``graph`` (two) commands
+    run in processes of their own beside the rest, each output equal to
+    the in-process call.  The roots must end as equal trees, none of the
+    six kernels may launch, and the phase must end within 90 s.
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
-runs, 17's grade, enhancer and concurrent requests, and 18's and 19's
-requests and commands) is driven with the launch counts set to 0 just before it and
+runs, 17's grade, enhancer and concurrent requests, and 18's, 19's and
+20's requests and commands) is driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -220,14 +239,15 @@ LETTERBOX_B = (1080, 1920)
 STILL_SIZES = ((2160, 3840), (1080, 1920))
 COMPARE_CLIP = (48, 24.0, (1920, 1080))
 # phase 15: the cartoon face of tests/test_face_detector.py in a 1080p
-# frame, panning over a seeded noise background, 72 frames at 24 fps; a
-# 512 crop pasted into a 4K frame; the secondary ops at 1080p and a
+# frame, panning over a seeded noise background, 36 frames at 24 fps (the
+# face path is host-bound: its depth keeps the script under half its time
+# limit); a 512 crop pasted into a 4K frame; the secondary ops at 1080p and a
 # rank-16 LoRA fold into a 4096 x 4096 weight.  The face is drawn at 0.6x
 # the test's 480p size (a 132 x 180 ellipse): YuNet finds none at 1.5x or
 # more, and the job targets small faces
-FACE_CLIP = (72, 24.0, (1920, 1080))
+FACE_CLIP = (36, 24.0, (1920, 1080))
 FACE_SCALE = 0.6
-FACE_REPAIR_RANGES = ("0-11,40-51", 24)               # ranges, frames
+FACE_REPAIR_RANGES = ("0-11,20-31", 24)               # ranges, frames
 PASTE_4K = ((2160, 3840), 512, (1600, 800, 2300, 1500))
 # phase 16: the fused grade on a mesh at 4K x 3 (pads to 4), the eager
 # stack height-sharded at 1080p x 2, the enhance step 1080p -> 4K on 3
@@ -260,7 +280,8 @@ BOUNDS = {"lab": 5e-4, "coeff": 1e-5, "rgb_grain_off": 2e-5,
           "resample_cv2": 1e-3, "compare_blend": 1e-6,
           "compare_letterbox": 1e-5, "face_crops": 2e-5,
           "face_composite": 1e-4, "paste_back_4k": 2e-5, "bilinear": 2e-5,
-          "lanczos4": 1e-5, "lora_relative": 1e-5, "spatial": 1e-5}
+          "lanczos4": 1e-5, "lora_relative": 1e-5, "spatial": 1e-5,
+          "lut_examples": 1e-5}
 # NVIDIA's H100 SXM data sheet (at the 700 W limit): HBM bandwidth, and
 # the float32 and float64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -1912,7 +1933,7 @@ def _memoized(detector):
 
 
 def _face_pipeline(device, clip: str, detector) -> None:
-    """Phase 15b: ``run_face_fix_pipeline`` on the 72-frame 1080p batch on
+    """Phase 15b: ``run_face_fix_pipeline`` on the 36-frame 1080p batch on
     the card with an affine model, timed and broken down by the profiler;
     then prepare and composite on the card against the CPU (crops <= 2e-5,
     composite <= 1e-4)."""
@@ -4343,6 +4364,601 @@ def workflow_phase(device) -> None:
                              f"{WORKFLOW_LIMIT_S} s")
 
 
+# --------------------------------------------------------------------------
+# Phase 20: lyrics, LLM batches, text pickers and graph plans
+# --------------------------------------------------------------------------
+
+# a 4-minute song: reference lines; the ASR run hears about 640 words in
+# about 80 segments, each segment 6-10 words
+LYRICS_SONG = (240.0, 60)                              # seconds, lines
+LYRICS_SCENES = 60
+LLM_GROUPS = (60, 10)                                  # groups, batch size
+PICKER_ITEMS = 500
+GRAPH_LORA_SLOTS = 8
+TEXT_LIMIT_S = 90.0
+TEXT_SEED = 2001
+_LYRIC_VOCAB = ("hold", "me", "now", "neon", "rain", "river", "light",
+                "run", "away", "tonight", "fire", "heart", "oh", "we",
+                "dance", "slow", "under", "the", "city", "dawn", "falling",
+                "into", "you", "again", "stars", "gold", "never", "let",
+                "go", "home", "ámbar", "it's", "sky", "wild", "echo")
+_SHOT_WORDS = ("wide shot", "slow push-in", "hand-held", "close-up",
+               "golden backlight", "neon rain", "orbit", "crane up",
+               "silhouette", "rim light", "dolly out", "ámbar haze")
+
+
+def seeded_song(seed: int, lines: int = LYRICS_SONG[1],
+                seconds: float = LYRICS_SONG[0]) -> dict:
+    """A seeded song in the ASR word-JSON contract (docs/MIGRATION.md
+    #3): ``reference`` lyric text (verse headers, stanza breaks, one
+    instrumental marker), ``asr`` (``{"segments": [...], "duration"}``,
+    word timings; the ASR run drops and misspells a few words) and
+    ``backup`` (a plain transcription of the same audio: segment timings
+    only, chunked otherwise)."""
+    rng = np.random.default_rng(seed)
+    sung = [[str(w) for w in rng.choice(_LYRIC_VOCAB,
+                                        size=int(rng.integers(9, 15)))]
+            for _ in range(lines)]
+    text_lines = []
+    for n, line in enumerate(sung):
+        if n % 8 == 0:
+            text_lines.append(f"[Verse {n // 8 + 1}]")
+        if n == lines // 2:
+            text_lines.append("[instrumental]")
+        text_lines.append(" ".join(line))
+        if n % 4 == 3:
+            text_lines.append("")
+    clock = float(rng.uniform(2.0, 4.0))
+    words = []
+    for n, line in enumerate(sung):
+        if n == lines // 2:
+            clock += 12.0                                # the break
+        for token in line:
+            if rng.random() < 0.08:                      # not heard
+                clock += float(rng.uniform(0.2, 0.4))
+                continue
+            heard = token
+            if rng.random() < 0.08:                      # misheard
+                heard = token[:-1] + str(rng.choice(list("aeioux"))) \
+                    if len(token) > 2 else token + "h"
+            start = clock
+            clock += float(rng.uniform(0.15, 0.32))
+            words.append({"word": heard, "start": round(start, 3),
+                          "end": round(clock, 3)})
+            clock += float(rng.uniform(0.02, 0.08))
+        clock += float(rng.uniform(0.2, 1.0))
+    duration = round(max(seconds, clock + 2.0), 3)
+
+    def chunked(low, high, with_words):
+        segments, cursor = [], 0
+        while cursor < len(words):
+            chunk = words[cursor:cursor + int(rng.integers(low, high))]
+            segment = {"text": " ".join(w["word"] for w in chunk),
+                       "start": chunk[0]["start"], "end": chunk[-1]["end"]}
+            if with_words:
+                segment["words"] = chunk
+            segments.append(segment)
+            cursor += len(chunk)
+        return {"segments": segments, "duration": duration}
+
+    return {"reference": "\n".join(text_lines), "asr": chunked(6, 11, True),
+            "backup": chunked(10, 16, False)}
+
+
+def scene_srt(duration: float, scenes: int) -> str:
+    """An SRT of ``scenes`` equal windows over ``duration`` seconds."""
+    from vrgdg_tpu_torch.api import builder as mvb
+
+    span = duration / scenes
+    return mvb.segments_to_srt([{"start": span * n, "end": span * (n + 1),
+                                 "label": f"Scene {n + 1}"}
+                                for n in range(scenes)])
+
+
+def seeded_story_groups(seed: int, count: int) -> dict:
+    """A story-group JSON (``{"groups": [...]}``) of ``count`` groups."""
+    rng = np.random.default_rng(seed)
+    return {"groups": [
+        {"group_index": n + 1,
+         "subject": " ".join(rng.choice(_LYRIC_VOCAB, size=3)),
+         "camera": str(rng.choice(_SHOT_WORDS)),
+         "scene_and_lighting": " ".join(rng.choice(_SHOT_WORDS, size=2)),
+         "frame": f"frame {int(rng.integers(1, 99))}"}
+        for n in range(count)]}
+
+
+def seeded_llm_reply(seed: int, batch_index: int, size: int) -> str:
+    """An LLM's reply for one batch: its ``promptN`` entries, in a code
+    fence after a line of chatter."""
+    rng = np.random.default_rng([seed, batch_index])
+    prompts = {f"prompt{n + 1}": ", ".join(rng.choice(_SHOT_WORDS, size=3))
+               + f", beat {batch_index * size + n + 1}"
+               for n in range(size)}
+    return ("Here are the prompts for this batch:\n```json\n"
+            + json.dumps(prompts, ensure_ascii=False, indent=1) + "\n```")
+
+
+def damaged_prompt_json(text: str) -> str:
+    """Prompt JSON damaged as LLM output is: a code fence, a bare key, a
+    stray ``*`` before a key, smart quotes and a trailing comma (the
+    damage ``llm_batches.clean_prompt_json`` repairs)."""
+    text = text.replace('"prompt2":', "prompt2:", 1)
+    text = text.replace('"prompt3":', '*prompt3":', 1)
+    text = text.replace('"', "\u201c", 1).replace('"', "\u201d", 1)
+    return "```json\n" + text.rstrip()[:-1] + ",}\n```"
+
+
+def seeded_picker_items(seed: int, count: int) -> str:
+    """``count`` picker items, one a line, some bulleted or numbered."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for n in range(count):
+        item = f"{rng.choice(_SHOT_WORDS)} over {rng.choice(_LYRIC_VOCAB)}"
+        lines.append(("- " if n % 7 == 0 else f"{n}. " if n % 11 == 0
+                      else "") + item)
+    return "\n".join(lines)
+
+
+def seeded_lora_payload(seed: int, slots: int, names) -> dict:
+    """A two-pass LoRA loader payload: ``slots`` slots of ``names``,
+    each with its own first- and second-pass strengths."""
+    rng = np.random.default_rng(seed)
+    payload = {"variant": "two_pass", "use_custom_loras": True,
+               "lora_count": slots}
+    for slot, name in enumerate(names[:slots], 1):
+        payload[f"lora_{slot}"] = name
+        payload[f"first_pass_strength_{slot}"] = round(
+            float(rng.uniform(-1.0, 1.0)), 3)
+        payload[f"second_pass_strength_{slot}"] = round(
+            float(rng.uniform(-1.0, 1.5)), 3)
+    return payload
+
+
+def seeded_lora_pairs(seed: int, names, shape, rank: int) -> dict:
+    """``{name: {"w": {"down", "up", "alpha"}}}``: one seeded rank-``rank``
+    pair for a ``shape`` weight per LoRA name."""
+    rng = np.random.default_rng(seed)
+    rows, cols = shape
+    return {name: {"w": {
+        "down": rng.standard_normal((rank, cols), np.float32),
+        "up": rng.standard_normal((rows, rank), np.float32) * 0.05,
+        "alpha": float(rank) / 2.0}} for name in names}
+
+
+def seeded_state_payload(seed: int) -> dict:
+    """A group-state payload: per-group targets of node ids."""
+    rng = np.random.default_rng(seed)
+    targets = [{"action": str(rng.choice(["mute", "active", "bypass"])),
+                "node_ids": [int(v) for v in rng.integers(1, 400, 4)]}
+               for _ in range(6)]
+    return {"mode": "group", "group_targets_json": json.dumps(targets),
+            "auto_queue_next": True, "queue_delay_seconds": 0}
+
+
+def text_media(folder: str, seed: int = TEXT_SEED) -> dict:
+    """Phase 20's inputs: the seeded song (and its files under
+    ``folder`` for the commands), the 60-scene SRT, the story groups,
+    the picker list, the LoRA and state payloads."""
+    song = seeded_song(seed)
+    srt = scene_srt(song["asr"]["duration"], LYRICS_SCENES)
+    groups = seeded_story_groups(seed + 1, LLM_GROUPS[0])
+    names = [f"style_{n}.safetensors" for n in range(GRAPH_LORA_SLOTS)]
+    files = {"asr": os.path.join(folder, "asr_words.json"),
+             "backup": os.path.join(folder, "backup_words.json"),
+             "reference": os.path.join(folder, "lyrics.txt"),
+             "srt": os.path.join(folder, "scenes.srt"),
+             "groups": os.path.join(folder, "groups.json"),
+             "reply": os.path.join(folder, "reply.txt"),
+             "state": os.path.join(folder, "state.json")}
+    os.makedirs(folder, exist_ok=True)
+    state = seeded_state_payload(seed + 4)
+    for key, content in (("asr", json.dumps(song["asr"])),
+                         ("backup", json.dumps(song["backup"])),
+                         ("reference", song["reference"]), ("srt", srt),
+                         ("groups", json.dumps(groups)),
+                         ("reply", seeded_llm_reply(seed, 0, LLM_GROUPS[1])),
+                         ("state", json.dumps(state))):
+        with open(files[key], "w", encoding="utf-8") as handle:
+            handle.write(content)
+    return {"song": song, "srt": srt, "groups": groups, "files": files,
+            "summary": "a river city at dawn, told in sixty beats",
+            "items": seeded_picker_items(seed + 2, PICKER_ITEMS),
+            "lora_names": names,
+            "lora": seeded_lora_payload(seed + 3, GRAPH_LORA_SLOTS, names),
+            "state": state}
+
+
+def _combine_answer(folder: str) -> dict:
+    from vrgdg_tpu_torch.runtime import llm_batches as lbx
+
+    result = lbx.combine_batches(folder, "Scene")
+    return {key: result[key] for key in
+            ("combined", "text", "path", "files", "count")}
+
+
+def _text_requests(srv: _Server, served: str, twin: str, media: dict) -> dict:
+    """Phase 20's requests, each against its twin call: lyrics in every
+    segment mode and the sheet; six plan/save rounds, combine, split,
+    the combined-file routes, a remake edit and a refused folder;
+    pickers; graph plans.  Returns the answers the phase checks on."""
+    from vrgdg_tpu_torch.runtime import combined_files as cbf
+    from vrgdg_tpu_torch.runtime import graph_plans as gp
+    from vrgdg_tpu_torch.runtime import llm_batches as lbx
+    from vrgdg_tpu_torch.runtime import lyric_align as lal
+    from vrgdg_tpu_torch.runtime import text_pickers as tp
+
+    step = _Twin(srv, served, twin)
+    song, found = media["song"], {}
+    asr, duration = song["asr"]["segments"], song["asr"]["duration"]
+
+    for mode in lal.SEGMENT_MODES:
+        for gaps in ((True, False) if mode == "reference_lines"
+                     else (True,)):
+            body = step(
+                "POST", "/vrgdg/lyrics/timestamped",
+                {"segments": asr, "duration": duration,
+                 "reference_lyrics": song["reference"],
+                 "segment_mode": mode, "include_instrumental_gaps": gaps},
+                lambda p: lal.timestamped_lyrics(
+                    lal.segments_from_words(p["segments"]), p["duration"],
+                    reference_lyrics=p["reference_lyrics"],
+                    segment_mode=p["segment_mode"],
+                    include_instrumental_gaps=p[
+                        "include_instrumental_gaps"]))
+            if not body["segment_count"] or body["segments"][-1][
+                    "end"] > duration + 1e-6:
+                raise AssertionError(f"lyrics {mode}: {str(body)[:300]}")
+            found[f"scenes_{mode}_{'gaps' if gaps else 'no_gaps'}"] = \
+                body["segment_count"]
+    body = step("POST", "/vrgdg/lyrics/sheet",
+                {"segments": asr, "srt_text": media["srt"],
+                 "reference_lyrics": song["reference"],
+                 "backup_segments": song["backup"]["segments"],
+                 "native_align": True},
+                lambda p: _sheet_answer(lal.extract_window_lyrics(
+                    lal.segments_from_words(p["segments"]),
+                    lal.srt_windows(p["srt_text"]),
+                    reference_lyrics=p["reference_lyrics"],
+                    backup_segments=lal.segments_from_words(
+                        p["backup_segments"]), native_align=True)))
+    if len(body["texts"]) != LYRICS_SCENES:
+        raise AssertionError(f"sheet: {len(body['texts'])} texts")
+
+    groups, size = LLM_GROUPS
+    llm_twin = os.path.join(twin, "llm_batches")
+    for index in range(groups // size):
+        plan = step("POST", "/vrgdg/llm_batches/plan",
+                    {"story_groups": media["groups"],
+                     "story_summary": media["summary"], "batch_size": size},
+                    lambda p: lbx.plan_batch(
+                        llm_twin, p["story_groups"], p["story_summary"],
+                        batch_size=p["batch_size"]))
+        if plan["batch_index"] != index \
+                or plan["is_final"] != (index == groups // size - 1):
+            raise AssertionError(f"plan {index}: {str(plan)[:300]}")
+        folder = "{root}" + plan["folder"][len(served):]
+        step("POST", "/vrgdg/llm_batches/save",
+             {"folder": folder, "batch_index": index,
+              "text": seeded_llm_reply(TEXT_SEED, index, size)},
+             lambda p: {"path": lbx.save_batch(
+                 os.path.realpath(p["folder"]), "Scene", p["batch_index"],
+                 p["text"])})
+    combined = step("POST", "/vrgdg/llm_batches/combine", {"folder": folder},
+                    lambda p: _combine_answer(os.path.realpath(p["folder"])))
+    if combined["count"] != groups:
+        raise AssertionError(f"combine: {str(combined)[:300]}")
+    split = step("POST", "/vrgdg/llm_batches/split",
+                 {"text": damaged_prompt_json(combined["text"]),
+                  "index": 1},
+                 lambda p: lbx.split_prompt_json(p["text"], folder=None,
+                                                 index=p["index"]))
+    found["split_prompts"] = sum(1 for value in split["prompts"] if value)
+    name = os.path.basename(combined["path"])
+    state = step("GET", "/vrgdg/llm_batches/combined_files",
+                 {"batch_type": "Text2Image"},
+                 lambda p: cbf.combined_files_state(llm_twin,
+                                                    p["batch_type"], ""))
+    values = step("GET", "/vrgdg/llm_batches/combined_file_prompt_values",
+                  {"batch_type": "Text2Image", "combined_json_file": name},
+                  lambda p: cbf.combined_file_prompt_values(
+                      llm_twin, p["batch_type"], p["combined_json_file"]))
+    if state["files"] != [name] or values["prompt_count"] != groups:
+        raise AssertionError(f"combined files: {state} "
+                             f"{values['prompt_count']}")
+    edit = step("POST", "/vrgdg/llm_batches/combined_file_update_prompts",
+                {"remake_mode": True, "batch_type": "Text2Image",
+                 "combined_json_file": name,
+                 "updates": [{"prompt_number": 7, "prompt": "re-shot at dusk",
+                              "image_index": "2, 3"}]},
+                lambda p: cbf.update_combined_file_prompts(llm_twin, p))
+    if edit["updated"] < 1:
+        raise AssertionError(f"prompt edit: {edit}")
+    for root in (served, twin):
+        remake = os.path.join(root, "clips", "remake")
+        os.makedirs(remake)
+        for number in (3, 12, 41):
+            open(os.path.join(remake, f"video_{number}_take.mp4"), "wb").close()
+    step("POST", "/vrgdg/llm_batches/remake_prompt_indexes",
+         {"folder_path": "{root}/clips"},
+         lambda p: cbf.remake_prompt_state(p["folder_path"]))
+    _, refused, _ = srv.call("POST", "/vrgdg/llm_batches/save",
+                             {"folder": served, "batch_index": 0,
+                              "text": "{}"}, status=400)
+    if refused["error"] != \
+            "folder must live under the managed llm_batches root":
+        raise AssertionError(f"refusal: {refused}")
+
+    for mode in tp.SELECTION_MODES:
+        picked = step("POST", "/vrgdg/text_tools/pick",
+                      {"index": 137, "items": media["items"],
+                       "label": "Shot", "selection_mode": mode, "seed": 42,
+                       "pick_count": 2},
+                      lambda p: tp.pick_text(
+                          p["index"], p["items"], label=p["label"],
+                          selection_mode=p["selection_mode"], seed=p["seed"],
+                          pick_count=p["pick_count"]), flat=False)
+        if picked["result"]["item_count"] != PICKER_ITEMS:
+            raise AssertionError(f"pick {mode}: {str(picked)[:300]}")
+    pickers = [{"items": media["items"], "label": "Shot", "index": 9,
+                "selection_mode": "random no repeat", "seed": 5},
+               {"preset": "Lighting", "index": 3},
+               {"items": "# LABEL: Mood\n# PICK_COUNT: 2\ncalm\nwild\nlost",
+                "index": 1}]
+    step("POST", "/vrgdg/text_tools/multi_pick",
+         {"pickers": pickers, "joiner": "comma"},
+         lambda p: tp.run_multi_picker(p["pickers"], p["joiner"]), flat=False)
+
+    lora_plan = step("POST", "/vrgdg/graph/lora_plan", media["lora"],
+                     gp.lora_plan_from_payload, flat=False)["result"]
+    step("POST", "/vrgdg/graph/state_plan", media["state"],
+         gp.state_plan_from_payload, flat=False)
+    if len(lora_plan["first_pass"]) != GRAPH_LORA_SLOTS \
+            or len(lora_plan["second_pass"]) != GRAPH_LORA_SLOTS:
+        raise AssertionError(f"lora plan: {lora_plan}")
+    found["lora_plan"] = lora_plan
+    return found
+
+
+def _sheet_answer(out: dict) -> dict:
+    return {"sheet": out["sheet"], "texts": out["texts"],
+            "windows": [list(window) for window in out["windows"]]}
+
+
+def _merge_plan_on_card(device, plan: dict, reps: int = 5) -> dict:
+    """The graph route's LoRA plan applied by ``ops.lora.apply_lora_plan``
+    to a 4096 x 4096 weight with rank-16 pairs on the card, held against
+    the same call on the CPU; its CUDA-event ms."""
+    from vrgdg_tpu_torch.ops import lora
+
+    rows, cols, rank = LORA
+    names = sorted({name for name, _ in plan["first_pass"]})
+    pairs = seeded_lora_pairs(TEXT_SEED + 5, names, (rows, cols), rank)
+    weight = torch.from_numpy(np.random.default_rng(TEXT_SEED + 6)
+                              .standard_normal((rows, cols), np.float32))
+    want = lora.apply_lora_plan({"w": weight}, plan, pairs.__getitem__)
+    on_card = {"w": weight.to(device)}
+    got = lora.apply_lora_plan(on_card, plan, pairs.__getitem__)
+    relative = max(_max_err(got[key]["w"].cpu(), want[key]["w"])
+                   / float(want[key]["w"].abs().max())
+                   for key in ("first_pass", "second_pass"))
+    _check("apply_lora_plan card vs CPU (relative)", relative,
+           BOUNDS["lora_relative"])
+    if got["first_pass"]["w"].device != torch.device(device):
+        raise AssertionError("apply_lora_plan left the card")
+    card_pairs = {name: {"w": {key: (torch.from_numpy(value).to(device)
+                                     if isinstance(value, np.ndarray)
+                                     else value)
+                               for key, value in pair["w"].items()}}
+                  for name, pair in pairs.items()}
+    ms = _cuda_ms(lambda: lora.apply_lora_plan(on_card, plan,
+                                               card_pairs.__getitem__), reps)
+    merges = len(plan["first_pass"]) + len(plan["second_pass"])
+    _say("graph-lora-merge", weight=f"{rows}x{cols}", rank=rank,
+         merges=merges, relative_err=f"{relative:.3g}"
+         f"<={BOUNDS['lora_relative']:g}", ms=f"{ms:.4f}",
+         ms_per_merge=f"{ms / merges:.4f}")
+    return {"relative": relative, "ms": ms, "merges": merges}
+
+
+def _lut_examples(device, folder: str) -> dict:
+    """The port's LUT examples tool on the card into ``folder``, each
+    graded frame held against the CPU's."""
+    import cv2
+
+    from vrgdg_tpu_torch.tools import generate_lut_examples as gle
+
+    started = time.perf_counter()
+    graded = gle.grade_examples(device=device)
+    written = gle.write_examples(graded, folder)
+    seconds = time.perf_counter() - started
+    plain = gle.grade_examples(device="cpu")
+    worst, levels = 0.0, 0
+    for name, frame in graded.items():
+        worst = max(worst, float(np.abs(frame - plain[name]).max()))
+        levels += int((gle.quantize(frame) != gle.quantize(plain[name]))
+                      .sum())
+    _check("LUT examples card vs CPU", worst, BOUNDS["lut_examples"])
+    for path in written:
+        image = cv2.imread(path)
+        if image is None or image.shape != (gle.HEIGHT, gle.WIDTH, 3):
+            raise AssertionError(f"LUT example {path} does not decode")
+    _say("lut-examples", luts=len(written), seconds=f"{seconds:.3f}",
+         max_abs_err=f"{worst:.3g}<={BOUNDS['lut_examples']:g}",
+         uint8_values_apart=levels, folder="temporary")
+    return {"luts": len(written), "seconds": seconds}
+
+
+def _text_commands(folder: str, media: dict) -> dict:
+    """The ``lyrics``, ``llm-batch`` and ``graph`` commands, each in a
+    process of its own (three lanes side by side; the ``llm-batch``
+    actions in order), each output equal to the in-process call; their
+    seconds."""
+    import threading
+
+    from vrgdg_tpu_torch.runtime import graph_plans as gp
+    from vrgdg_tpu_torch.runtime import llm_batches as lbx
+    from vrgdg_tpu_torch.runtime import lyric_align as lal
+
+    files, song = media["files"], media["song"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    seconds, failures = {}, []
+    os.makedirs(folder)
+
+    def run(*argv, label=None):
+        started = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "vrgdg_tpu_torch.cli", *argv], cwd=repo,
+            capture_output=True, text=True, timeout=300, check=False)
+        seconds[label or " ".join(argv[:2])] = round(
+            time.perf_counter() - started, 3)
+        if done.returncode != 0:
+            raise AssertionError(f"{' '.join(argv[:2])} exited "
+                                 f"{done.returncode}: {done.stderr[-2000:]}")
+        return done.stdout
+
+    segments = lal.segments_from_words(song["asr"]["segments"])
+    lyrics_json = os.path.join(folder, "timestamped.json")
+
+    def lyrics():
+        printed = json.loads(run("lyrics", files["asr"], "--reference",
+                                 files["reference"], "--segment-mode",
+                                 "reference_lines", "-o", lyrics_json,
+                                 label="lyrics"))
+        with open(lyrics_json, encoding="utf-8") as handle:
+            written = json.load(handle)
+        want = lal.timestamped_lyrics(
+            segments, song["asr"]["duration"],
+            reference_lyrics=song["reference"],
+            segment_mode="reference_lines")
+        if written != json.loads(json.dumps(want)) or printed != {
+                "output": lyrics_json, "segment_count":
+                want["segment_count"], "duration": want["duration"]}:
+            raise AssertionError(f"lyrics command: {printed}")
+        sheet = run("lyrics", files["asr"], "--reference", files["reference"],
+                    "--sheet-srt", files["srt"], "--backup", files["backup"],
+                    "--native-align", label="lyrics --sheet-srt")
+        want = lal.extract_window_lyrics(
+            segments, lal.srt_windows(media["srt"]),
+            reference_lyrics=song["reference"],
+            backup_segments=lal.segments_from_words(
+                song["backup"]["segments"]), native_align=True)["sheet"]
+        if sheet != want + "\n":
+            raise AssertionError(f"lyrics --sheet-srt: {sheet[:300]}")
+
+    def llm_batch():
+        steps = {}
+        for side in ("command", "twin"):
+            root = os.path.join(folder, side, "llm_batches")
+            if side == "command":
+                plan = json.loads(run("llm-batch", "plan", root, "--groups",
+                                      files["groups"], "--summary",
+                                      media["summary"]))
+                saved = json.loads(run("llm-batch", "save", plan["folder"],
+                                       "--index", "0", "--text",
+                                       files["reply"]))
+                combined = json.loads(run("llm-batch", "combine",
+                                          plan["folder"]))
+                split = json.loads(run("llm-batch", "split", combined["path"],
+                                       "--index", "0"))
+            else:
+                plan = lbx.plan_batch(root, media["groups"], media["summary"])
+                with open(files["reply"], encoding="utf-8-sig") as handle:
+                    saved = {"path": lbx.save_batch(plan["folder"], "Scene",
+                                                    0, handle.read())}
+                result = lbx.combine_batches(plan["folder"], "Scene")
+                combined = {key: result[key]
+                            for key in ("path", "files", "count")}
+                with open(combined["path"], encoding="utf-8-sig") as handle:
+                    split = lbx.split_prompt_json(handle.read(), index=0)
+            steps[side] = _store_canon(json.loads(json.dumps(
+                [plan, saved, combined, split], default=str)),
+                os.path.join(folder, side))
+        if steps["command"] != steps["twin"]:
+            raise AssertionError(f"llm-batch commands: "
+                                 f"{str(steps['command'])[:600]}")
+
+    def graph():
+        for argv, want in (
+                (["graph", "lora-plan", "--payload",
+                  json.dumps(media["lora"])],
+                 gp.lora_plan_from_payload(media["lora"])),
+                (["graph", "state-plan", "--payload", "@" + files["state"]],
+                 gp.state_plan_from_payload(media["state"]))):
+            if json.loads(run(*argv)) != json.loads(json.dumps(want)):
+                raise AssertionError(f"{' '.join(argv[:2])} differs")
+
+    def lane(fn):
+        try:
+            fn()
+        except Exception as exc:  # noqa: BLE001 — re-raised below
+            failures.append(exc)
+
+    lanes = [threading.Thread(target=lane, args=(fn,))
+             for fn in (lyrics, llm_batch, graph)]
+    for thread in lanes:
+        thread.start()
+    for thread in lanes:
+        thread.join(timeout=600)
+    if failures or any(thread.is_alive() for thread in lanes):
+        raise AssertionError(f"commands failed: {failures}")
+    return seconds
+
+
+def text_phase(device) -> None:
+    """Phase 20: lyrics, LLM batches and combined files, text pickers and
+    graph plans by request on the port's server with the card as its
+    device, each answer against its in-process twin; the graph's LoRA
+    plan applied on the card; the ``lyrics``, ``llm-batch`` and ``graph``
+    commands in processes of their own; the LUT examples tool on the
+    card.  None of the six kernels may launch.  The commands' processes
+    (about 10 s each to start on the card's host) run beside the rest."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as folder, \
+            ThreadPoolExecutor(1) as pool:
+        served = os.path.join(folder, "served")
+        twin = os.path.join(folder, "twin")
+        os.makedirs(served)
+        os.makedirs(twin)
+        media = text_media(os.path.join(folder, "media"))
+        commands = pool.submit(_text_commands, os.path.join(folder, "cli"),
+                               media)
+        srv = None
+        try:
+            srv = _Server(device, served)
+            found, counts = _counted(
+                lambda: _text_requests(srv, served, twin, media))
+        finally:
+            if srv is not None:
+                srv.close()
+        _expect("text requests", counts, {})
+        trees = (_store_tree(served), _store_tree(twin))
+        if trees[0] != trees[1]:
+            names = sorted(set(trees[0]) ^ set(trees[1])) or sorted(
+                name for name in trees[0] if trees[0][name] != trees[1][name])
+            raise AssertionError(f"served and twin roots differ: {names[:8]}")
+        request_s = time.perf_counter() - started
+        merged, counts = _counted(
+            lambda: _merge_plan_on_card(device, found.pop("lora_plan")))
+        _expect("graph LoRA merge", counts, {})
+        examples, counts = _counted(
+            lambda: _lut_examples(device, os.path.join(folder, "examples")))
+        _expect("LUT examples", counts, {})
+        command_seconds = commands.result(timeout=600)
+    elapsed = time.perf_counter() - started
+    _say("text", requests=srv.calls, files=len(trees[0]), vs_twin="equal",
+         kernels="none launched", requests_s=f"{request_s:.2f}",
+         scenes=json.dumps(found, separators=(",", ":")),
+         lora_merge_ms=f"{merged['ms']:.4f}",
+         lut_examples_s=f"{examples['seconds']:.3f}",
+         commands=json.dumps(command_seconds, separators=(",", ":")),
+         phase_s=f"{elapsed:.2f}", limit_s=TEXT_LIMIT_S)
+    if elapsed > TEXT_LIMIT_S:
+        raise AssertionError(f"phase 20 took {elapsed:.1f} s, over "
+                             f"{TEXT_LIMIT_S} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4411,6 +5027,7 @@ def main() -> int:
     _add(launches, server_phase(device, kind))
     builder_phase(device)
     workflow_phase(device)
+    text_phase(device)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

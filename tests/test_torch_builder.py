@@ -101,13 +101,17 @@ def test_copied_modules_keep_every_function_source(original, copy):
 
 def _constants(module):
     """The module's own data: everything but modules, functions, classes
-    and objects without a value (locks)."""
+    and objects without a value (locks, and registries of locks that the
+    module fills as it runs, such as ``builder._PROJECT_LOCKS``, whose
+    keys are whatever projects earlier tests in the process touched)."""
     found = {}
     for name, value in vars(module).items():
         if name.startswith("__") or inspect.ismodule(value) \
                 or inspect.isroutine(value) or inspect.isclass(value):
             continue
-        if isinstance(value, re.Pattern):
+        if isinstance(value, dict) and name.endswith("_LOCKS"):
+            found[name] = type(value).__name__
+        elif isinstance(value, re.Pattern):
             found[name] = (value.pattern, value.flags)
         elif isinstance(value, (str, int, float, tuple, list, dict, set,
                                 frozenset)):

@@ -43,14 +43,12 @@ from vrgdg_tpu_torch.server import routes as troutes
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# route groups of the JAX server the port does not register yet, by path
-# prefix (in the order ROADMAP queues them)
-NOT_PORTED = ("/vrgdg/text_tools/", "/vrgdg/lyrics/", "/vrgdg/llm_batches/",
-              "/vrgdg/graph/")
+# route groups of the JAX server the port does not register, by path
+# prefix: none are left
+NOT_PORTED = ()
 # the groups ported last, with their path counts
-LATEST_GROUPS = {"/vrgdg/workflow_runner/": 30,
-                 "/vrgdg/music_prompt_creator/": 13,
-                 "/vrgdg/start_storyboard/": 8, "/vrgdg/krea2_studio/": 15}
+LATEST_GROUPS = {"/vrgdg/lyrics/": 2, "/vrgdg/llm_batches/": 8,
+                 "/vrgdg/text_tools/": 2, "/vrgdg/graph/": 2}
 
 # timings, the device, and the byte size of encoded files (their pixels
 # may differ by a level)
@@ -302,12 +300,9 @@ def test_route_table_equals_the_jax_groups_it_ports():
     port_table = _routes(tserver.create_app(device="cpu"))
     assert port_table == {r for r in jax_table if _ported(r[1])}
     left_out = {r for r in jax_table if not _ported(r[1])}
-    # every group left out is host-only, none of them is half ported, and
-    # each prefix still listed names a JAX route the port lacks
-    assert len(left_out) == len(jax_table) - len(port_table) == 14
-    assert not any(path == r[1] for r in left_out for _, path in port_table)
-    assert all(any(r[1].startswith(prefix) for r in left_out)
-               for prefix in NOT_PORTED)
+    # every group is ported: the two route tables are equal
+    assert not left_out and not NOT_PORTED
+    assert port_table == jax_table and len(port_table) > 190
 
 
 def test_route_table_of_the_latest_groups_equals_the_jax_apps():
@@ -317,7 +312,7 @@ def test_route_table_of_the_latest_groups_equals_the_jax_apps():
         ours = {r for r in port_table if r[1].startswith(prefix)}
         assert ours == {r for r in jax_table if r[1].startswith(prefix)}
         assert len(ours) == count, prefix
-    assert sum(LATEST_GROUPS.values()) == 66
+    assert sum(LATEST_GROUPS.values()) == 14
 
 
 def test_panel_routes_of_the_ported_groups_are_registered():
@@ -352,9 +347,10 @@ def test_catalog_health_and_ui(pair):
                           "/vrgdg/music_builder/luts/example",
                           params={"name": "../../etc/passwd"})
     assert status == 404
-    # a group not ported yet, and a method a route does not take
-    assert clients["port"].request(
-        "POST", "/vrgdg/llm_batches/plan", json_body={})[0] == 404
+    # a path no group registers, and a method a route does not take
+    (status, _), _ = both(clients, tmp, "POST", "/vrgdg/no_such_group/plan",
+                          json_body={})
+    assert status == 404
     assert clients["port"].request("GET", "/vrgdg/compare/video")[0] == 405
 
 

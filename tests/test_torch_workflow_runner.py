@@ -130,9 +130,8 @@ def test_the_new_modules_import_neither_jax_pillow_nor_the_jax_package():
 # the runtime package's exports
 # --------------------------------------------------------------------------
 
-NOT_YET = ("vrgdg_tpu.runtime.llm_batches", "vrgdg_tpu.runtime.json_fixers",
-           "vrgdg_tpu.runtime.lyric_align",
-           "vrgdg_tpu.runtime.prompt_splitters")
+# the JAX runtime modules whose names the port does not export: none
+NOT_YET = ()
 
 
 def test_runtime_exports_the_jax_names_of_its_modules():
@@ -142,10 +141,10 @@ def test_runtime_exports_the_jax_names_of_its_modules():
     later = {name for name in j_runtime.__all__
              if getattr(getattr(j_runtime, name), "__module__", "")
              in NOT_YET}
-    assert len(j_runtime.__all__) == 53 and len(later) == 21
+    assert len(j_runtime.__all__) == 53 and len(later) == 0
     assert sorted(t_runtime.__all__) == sorted(set(j_runtime.__all__)
                                                - later)
-    assert len(t_runtime.__all__) == 32
+    assert len(t_runtime.__all__) == 53
     for name in t_runtime.__all__:
         value = getattr(t_runtime, name)
         home = getattr(value, "__module__", None)
@@ -167,7 +166,7 @@ def test_importing_the_runtime_package_loads_no_cv2():
     done = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO, timeout=120, check=False,
                           env={**os.environ, "PYTHONPATH": REPO})
-    assert done.returncode == 0 and done.stdout.strip() == "32", done.stderr
+    assert done.returncode == 0 and done.stdout.strip() == "53", done.stderr
 
 
 # --------------------------------------------------------------------------

@@ -25,9 +25,14 @@ Subcommands (the same flags as ``vrgdg_tpu.cli``, plus ``--device``):
   audio    — waveform toolkit: split, srt-split, delay, peaks (host)
   builder  — music video builder project store: new, list, load, save,
              delete, export, import, scan, analyze, mix (host)
+  lyrics   — timestamped lyric scenes or a lyric sheet from external ASR
+             word JSON (host)
+  llm-batch — LLM batch-run loop: plan, save, combine, split (host)
   humo     — HuMo set pipeline: plan, split-set, chunk, final, grid (host)
   workflow — workflow-runner prompt builders: build, list, lora-list,
              choices (host; executor-ready JSON)
+  graph    — graph-glue plans: lora-plan, state-plan (host; a LoRA plan
+             is applied by ``ops.lora.apply_lora_plan``)
   serve    — the HTTP API server (``vrgdg_tpu_torch.server``) on the device
 
 ``--device`` defaults to ``cuda``; on a machine without a card the command
@@ -285,6 +290,93 @@ def _builder(args) -> None:
              "allow_missing_scene_audio": True}))
 
 
+def _lyrics(args) -> None:
+    from .runtime import lyric_align as lal
+
+    with open(args.input, "r", encoding="utf-8-sig") as handle:
+        raw = json.load(handle)
+    raw_segments = raw["segments"] if isinstance(raw, dict) else raw
+    segments = lal.segments_from_words(raw_segments)
+    duration = args.duration
+    if duration <= 0 and isinstance(raw, dict):
+        duration = float(raw.get("duration", 0.0) or 0.0)
+    if duration <= 0:
+        duration = max((seg["end"] for seg in segments), default=0.0)
+    reference_text = ""
+    if args.reference:
+        with open(args.reference, "r", encoding="utf-8-sig") as handle:
+            reference_text = handle.read()
+    if args.sheet_srt:
+        with open(args.sheet_srt, "r", encoding="utf-8-sig") as handle:
+            windows = lal.srt_windows(handle.read())
+        backup = None
+        if args.backup:
+            with open(args.backup, "r", encoding="utf-8-sig") as handle:
+                backup_raw = json.load(handle)
+            backup = lal.segments_from_words(
+                backup_raw["segments"] if isinstance(backup_raw, dict)
+                else backup_raw)
+        sheet = lal.extract_window_lyrics(
+            segments, windows, reference_lyrics=reference_text,
+            backup_segments=backup, native_align=args.native_align)["sheet"]
+        if args.output:
+            with open(args.output, "w", encoding="utf-8") as handle:
+                handle.write(sheet)
+            _print({"output": os.path.abspath(args.output)})
+        else:
+            print(sheet)
+        return
+    payload = lal.timestamped_lyrics(
+        segments, duration, reference_lyrics=reference_text,
+        segment_mode=args.segment_mode,
+        include_instrumental_gaps=not args.no_instrumental_gaps,
+        instrumental_text=args.instrumental_text,
+        min_gap_seconds=args.min_gap, min_scene_seconds=args.min_scene,
+        max_scene_seconds=args.max_scene,
+        vocal_tail_padding_seconds=args.vocal_tail)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as handle:
+            json.dump(payload, handle, ensure_ascii=False, indent=2)
+        _print({"output": os.path.abspath(args.output),
+                "segment_count": payload["segment_count"],
+                "duration": payload["duration"]})
+    else:
+        _print(payload)
+
+
+def _llm_batch(args) -> None:
+    from .runtime import llm_batches as lbx
+
+    def read_text(path):
+        if path == "-":
+            return sys.stdin.read()
+        with open(path, "r", encoding="utf-8-sig") as handle:
+            return handle.read()
+
+    def read_json(path):
+        return json.loads(read_text(path)) if path else None
+
+    if args.action == "plan":
+        if not args.groups:
+            raise SystemExit("--groups JSON file is required")
+        _print(lbx.plan_batch(
+            args.target, read_json(args.groups), args.summary,
+            batch_size=args.batch_size, file_prefix=args.prefix,
+            manual_index=args.index, lyric_segments=read_json(args.lyrics)))
+    elif args.action == "save":
+        if args.index < 0 or not args.text:
+            raise SystemExit("save needs --index and --text")
+        _print({"path": lbx.save_batch(args.target, args.prefix, args.index,
+                                       read_text(args.text))})
+    elif args.action == "combine":
+        result = lbx.combine_batches(args.target, args.prefix)
+        _print({key: result[key] for key in ("path", "files", "count")})
+    elif args.action == "split":
+        _print(lbx.split_prompt_json(read_text(args.target),
+                                     folder=args.folder or None,
+                                     index=max(args.index, 0)))
+
+
 def _humo(args) -> None:
     from .runtime import audio_toolkit as atk
     from .runtime import video_io as vio
@@ -384,6 +476,26 @@ def _workflow(args, parser) -> None:
             json.dump(result, handle, indent=2, default=str)
         _print({"output": os.path.abspath(args.output),
                 "builder": args.builder or args.action})
+    else:
+        _print(result)
+
+
+def _graph(args) -> None:
+    from .runtime import graph_plans as gp
+
+    text = args.payload
+    if text.startswith("@"):
+        with open(text[1:], encoding="utf-8") as handle:
+            text = handle.read()
+    payload = json.loads(text) if text else {}
+    dispatch = (gp.lora_plan_from_payload if args.action == "lora-plan"
+                else gp.state_plan_from_payload)
+    result = dispatch(payload)
+    if args.output:
+        with open(args.output, "w", encoding="utf-8") as handle:
+            json.dump(result, handle, indent=2, default=str)
+        _print({"output": os.path.abspath(args.output),
+                "action": args.action})
     else:
         _print(result)
 
@@ -579,6 +691,60 @@ def main(argv=None):
                    help="managed projects root (defaults to "
                         "VRGDG_TPU_OUTPUT)")
 
+    p = sub.add_parser(
+        "lyrics", help="timestamped lyric scenes from external ASR word JSON")
+    p.add_argument("input",
+                   help="word-timestamped ASR segments JSON "
+                        "(see docs/MIGRATION.md contract #3)")
+    p.add_argument("--reference", default="",
+                   help="reference lyrics text file")
+    p.add_argument("--segment-mode", default="whisper_chunks",
+                   choices=["whisper_chunks", "reference_lines",
+                            "exact_reference_lines", "reference_stanzas",
+                            "reference_scene_words"])
+    p.add_argument("--no-instrumental-gaps", action="store_true")
+    p.add_argument("--instrumental-text", default="[instrumental]")
+    p.add_argument("--min-gap", type=float, default=1.0)
+    p.add_argument("--min-scene", type=float, default=1.0)
+    p.add_argument("--max-scene", type=float, default=8.0)
+    p.add_argument("--vocal-tail", type=float, default=0.6)
+    p.add_argument("--duration", type=float, default=0.0,
+                   help="total audio seconds (default: from the JSON or the "
+                        "last word end)")
+    p.add_argument("-o", "--output", default="",
+                   help="write the payload JSON here (default stdout)")
+    p.add_argument("--sheet-srt", default="",
+                   help="emit the editable lyricSegmentN= sheet for this "
+                        "SRT's scene windows instead of the timestamped "
+                        "payload")
+    p.add_argument("--backup", default="",
+                   help="plain-transcription ASR JSON for sheet backup fill "
+                        "(optional)")
+    p.add_argument("--native-align", action="store_true",
+                   help="mark the input as forced-alignment output (enables "
+                        "the sheet's cleanup/reassignment branch)")
+
+    p = sub.add_parser("llm-batch",
+                       help="LLM batch-run pipeline (plan/save/combine/split)")
+    p.add_argument("action", choices=["plan", "save", "combine", "split"])
+    p.add_argument("target",
+                   help="batch root (plan) / run folder (save, combine) / "
+                        "LLM output text file or '-' for stdin (split)")
+    p.add_argument("--groups", default="",
+                   help="story groups JSON file (plan)")
+    p.add_argument("--lyrics", default="",
+                   help="lyric segments JSON file (plan)")
+    p.add_argument("--summary", default="", help="story summary text (plan)")
+    p.add_argument("--batch-size", type=int, default=10)
+    p.add_argument("--prefix", default="Scene", help="batch file prefix")
+    p.add_argument("--index", type=int, default=-1,
+                   help="manual batch index (plan) / batch index (save, "
+                        "required) / run index (split)")
+    p.add_argument("--text", default="",
+                   help="LLM reply text file or '-' for stdin (save)")
+    p.add_argument("--folder", default="",
+                   help="persist folder for split outputs")
+
     p = sub.add_parser("humo", help="HuMo set pipeline (plan/split/final/grid)")
     p.add_argument("action", choices=["plan", "split-set", "chunk", "final",
                                       "grid"])
@@ -622,6 +788,15 @@ def main(argv=None):
     p.add_argument("-o", "--output", default="",
                    help="write the result JSON here instead of stdout")
 
+    p = sub.add_parser(
+        "graph", help="graph-glue plans (LoRA application / mute-group events)")
+    p.add_argument("action", choices=["lora-plan", "state-plan"])
+    p.add_argument("--payload", default="",
+                   help="JSON payload text or @file path (same schema as "
+                        "POST /vrgdg/graph/*)")
+    p.add_argument("-o", "--output", default="",
+                   help="write the plan JSON here instead of stdout")
+
     p = sub.add_parser("serve", help="run the HTTP API server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8431)
@@ -648,7 +823,9 @@ def main(argv=None):
         _print({"output": path, "size": args.size, "colors": args.colors})
         return
     host_commands = {"beats": _beats, "scene-srt": _scene_srt,
-                     "audio": _audio, "builder": _builder, "humo": _humo}
+                     "audio": _audio, "builder": _builder, "humo": _humo,
+                     "lyrics": _lyrics, "llm-batch": _llm_batch,
+                     "graph": _graph}
     if args.command in host_commands:
         host_commands[args.command](args)
         return

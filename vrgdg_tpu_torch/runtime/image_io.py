@@ -13,7 +13,8 @@ goes through them:
   .convert("RGB")``: EXIF orientation applied;
 - :func:`write_rgb` is ``Image.fromarray(u8).save(path)`` at Pillow's
   defaults for the extension (JPEG quality 75, WebP quality 80, PNG and
-  BMP lossless), where cv2's own defaults are JPEG 95 and lossless WebP;
+  BMP lossless), where cv2's own defaults are JPEG 95 and lossless WebP,
+  or at the quality asked for;
 - :func:`pil_lanczos_resize` is ``Image.resize(size, LANCZOS)`` on an
   RGB image: Pillow's fixed-point two-pass filter (``Resample.c``), which
   is not cv2's ``INTER_LANCZOS4`` (4 lobes, float weights, no widening on
@@ -101,10 +102,11 @@ def read_rgb_exif_transposed(path) -> np.ndarray:
     return _imread(path, cv2.IMREAD_COLOR)
 
 
-def write_rgb(path, u8: np.ndarray) -> str:
+def write_rgb(path, u8: np.ndarray, quality: int | None = None) -> str:
     """Encode (H, W, 3) uint8 RGB to ``path`` in the format its extension
-    names, at Pillow's default settings for that format; raises when cv2
-    cannot write it."""
+    names, at Pillow's default settings for that format or at
+    ``quality`` (JPEG and WebP, as Pillow's ``save(quality=)``); raises
+    when cv2 cannot write it."""
     import cv2
 
     path = os.fspath(path)
@@ -115,9 +117,9 @@ def write_rgb(path, u8: np.ndarray) -> str:
     ext = os.path.splitext(path)[1].lower()
     params: list[int] = []
     if ext in (".jpg", ".jpeg"):
-        params = [cv2.IMWRITE_JPEG_QUALITY, _JPEG_QUALITY]
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality or _JPEG_QUALITY]
     elif ext == ".webp":
-        params = [cv2.IMWRITE_WEBP_QUALITY, _WEBP_QUALITY]
+        params = [cv2.IMWRITE_WEBP_QUALITY, quality or _WEBP_QUALITY]
     if not cv2.imwrite(path, np.ascontiguousarray(u8[..., ::-1]), params):
         raise RuntimeError(f"cv2 could not write the image {path}.")
     return path

@@ -1,4 +1,4 @@
-"""HTTP API of the port: the device-facing route groups of
+"""HTTP API of the port: every route group of
 :mod:`vrgdg_tpu.server.routes` on aiohttp, like for like: the same paths,
 methods, status codes and JSON bodies, the same mutation guard, 1 GiB body
 limit and multipart upload in 1 MiB chunks.
@@ -27,13 +27,14 @@ module at a time):
   the prompt creator ``/vrgdg/music_prompt_creator/`` (13),
   ``/vrgdg/start_storyboard/`` (8) and the Krea2 LoRA Studio
   ``/vrgdg/krea2_studio/`` (15): host-only as well;
+- timestamped lyrics and lyric sheets ``/vrgdg/lyrics/`` (2), the LLM
+  batch loop and the combined-file browser ``/vrgdg/llm_batches/`` (8,
+  under ``<output>/llm_batches``), the cycling text pickers
+  ``/vrgdg/text_tools/`` (2) and the graph plans ``/vrgdg/graph/`` (2):
+  host-only;
 - ``/vrgdg/health``, ``/vrgdg/update/status``,
   ``/vrgdg/node_canvas/status``, the panel at ``/vrgdg/ui`` and the ``/``
   redirect to it.
-
-Not registered yet (their requests get 404): lyrics and LLM batches,
-combined files, text pickers and graph plans.  They are host-only and
-reach no device.
 
 Every handler that reaches the device takes the app's one device, which
 :func:`create_app` resolves once: ``cuda`` without a visible card raises
@@ -75,6 +76,11 @@ from ..api import workflow_runner
 from ..jobs import enhancer as enh
 from ..jobs import face_fix as ff
 from ..release_notes import latest_release, load_release_notes
+from ..runtime import combined_files as cbf
+from ..runtime import graph_plans as gp
+from ..runtime import llm_batches as lbx
+from ..runtime import lyric_align as lal
+from ..runtime import text_pickers as tp
 from ..runtime import video_io
 
 # The panel is a data file of the JAX package, read where it lies: reading
@@ -1114,6 +1120,154 @@ def _krea2_studio_routes(routes, ctx: _Context) -> None:
         return web.FileResponse(path)
 
 
+def _lyrics_timestamped(payload: dict) -> dict:
+    """``lyrics/timestamped``: the timestamped scene payload of an ASR
+    word timeline, aligned to reference lyrics when given."""
+    segments = lal.segments_from_words(payload.get("segments") or [])
+    duration = float(payload.get("duration") or 0.0)
+    if duration <= 0:
+        duration = max((seg["end"] for seg in segments), default=0.0)
+    return lal.timestamped_lyrics(
+        segments, duration,
+        reference_lyrics=payload.get("reference_lyrics", ""),
+        segment_mode=payload.get("segment_mode", "whisper_chunks"),
+        include_instrumental_gaps=bool(
+            payload.get("include_instrumental_gaps", True)),
+        instrumental_text=payload.get("instrumental_text", "[instrumental]"),
+        min_gap_seconds=float(payload.get("min_gap_seconds", 1.0)),
+        min_scene_seconds=float(payload.get("min_scene_seconds", 1.0)),
+        max_scene_seconds=float(payload.get("max_scene_seconds", 8.0)),
+        vocal_tail_padding_seconds=float(
+            payload.get("vocal_tail_padding_seconds", 0.6)))
+
+
+def _lyrics_sheet(payload: dict) -> dict:
+    """``lyrics/sheet``: the editable ``lyricSegmentN=`` sheet for SRT
+    scene windows (or explicit ``windows``)."""
+    segments = lal.segments_from_words(payload.get("segments") or [])
+    if payload.get("srt_text"):
+        windows = lal.srt_windows(payload["srt_text"])
+    else:
+        windows = [tuple(window) for window in payload.get("windows", [])]
+    backup = lal.segments_from_words(payload["backup_segments"]) \
+        if payload.get("backup_segments") else None
+    out = lal.extract_window_lyrics(
+        segments, windows,
+        reference_lyrics=payload.get("reference_lyrics", ""),
+        backup_segments=backup,
+        native_align=bool(payload.get("native_align")),
+        strict_reference_text=bool(
+            payload.get("strict_reference_text", True)),
+        fill_aggressiveness=int(payload.get("fill_aggressiveness", 1)),
+        preserve_nonvocal_segments=bool(
+            payload.get("preserve_nonvocal_segments", True)),
+        alignment_min_words=int(payload.get("alignment_min_words", 2)))
+    return {"sheet": out["sheet"], "texts": out["texts"],
+            "windows": [list(window) for window in out["windows"]]}
+
+
+def _lyrics_routes(routes, ctx: _Context) -> None:
+    """Timestamped lyric scenes and lyric sheets from external ASR word
+    JSON (the ASR run itself stays external): host-only."""
+    route = functools.partial(_json_route, routes, flat=True)
+    route("/vrgdg/lyrics/timestamped", _lyrics_timestamped)
+    route("/vrgdg/lyrics/sheet", _lyrics_sheet)
+
+
+def _llm_batch_routes(routes, ctx: _Context) -> None:
+    """The LLM batch plan/save/combine/split loop and the combined-file
+    browser over the managed ``<output>/llm_batches`` root (the LLM run
+    itself stays external): host-only.  Save and combine refuse folders
+    outside that root."""
+    llm_root = os.path.join(ctx.out_root, "llm_batches")
+
+    def contained_batch_folder(folder):
+        real = os.path.realpath(str(folder or ""))
+        root = os.path.realpath(llm_root)
+        if real != root and not real.startswith(root + os.sep):
+            raise ValueError(
+                "folder must live under the managed llm_batches root")
+        return real
+
+    def plan(payload):
+        return lbx.plan_batch(
+            llm_root, payload.get("story_groups"),
+            payload.get("story_summary", ""),
+            batch_size=int(payload.get("batch_size", 10)),
+            file_prefix=payload.get("file_prefix", "Scene"),
+            manual_index=int(payload.get("manual_index", -1)),
+            lyric_segments=payload.get("lyric_segments"))
+
+    def save(payload):
+        folder = contained_batch_folder(payload.get("folder"))
+        return {"path": lbx.save_batch(
+            folder, payload.get("file_prefix", "Scene"),
+            int(payload["batch_index"]), str(payload.get("text", "")))}
+
+    def combine(payload):
+        folder = contained_batch_folder(payload.get("folder"))
+        result = lbx.combine_batches(folder,
+                                     payload.get("file_prefix", "Scene"))
+        return {key: result[key] for key in
+                ("combined", "text", "path", "files", "count")}
+
+    route = functools.partial(_json_route, routes, flat=True)
+    route("/vrgdg/llm_batches/plan", plan)
+    route("/vrgdg/llm_batches/save", save)
+    route("/vrgdg/llm_batches/combine", combine)
+    route("/vrgdg/llm_batches/split",
+          lambda p: lbx.split_prompt_json(p.get("text", ""), folder=None,
+                                          index=int(p.get("index", 0))))
+    route("/vrgdg/llm_batches/combined_file_update_prompts",
+          lambda p: cbf.update_combined_file_prompts(llm_root, p))
+    route("/vrgdg/llm_batches/remake_prompt_indexes",
+          lambda p: cbf.remake_prompt_state(p.get("folder_path", "")))
+
+    @routes.get("/vrgdg/llm_batches/combined_files")
+    @_handler
+    def llm_combined_files(request):
+        return _ok(**cbf.combined_files_state(
+            llm_root, request.query.get("batch_type", ""),
+            request.query.get("combined_json_file", "")))
+
+    @routes.get("/vrgdg/llm_batches/combined_file_prompt_values")
+    @_handler
+    def llm_combined_prompt_values(request):
+        return _ok(**cbf.combined_file_prompt_values(
+            llm_root, request.query.get("batch_type", ""),
+            request.query.get("combined_json_file", "")))
+
+
+def _text_picker_routes(routes, ctx: _Context) -> None:
+    """The cycling text pickers (``runtime/text_pickers``, not
+    ``runtime/text_tools``) under ``/vrgdg/text_tools/``: host-only."""
+    _json_route(routes, "/vrgdg/text_tools/pick",
+                lambda p: tp.pick_text(
+                    p.get("index", 0), p.get("items", ""),
+                    label=p.get("label", ""),
+                    max_items=int(p.get("max_items", 0) or 0),
+                    split_mode=p.get("split_mode", "auto"),
+                    selection_mode=p.get("selection_mode", "index"),
+                    seed=p.get("seed", 0),
+                    multi_format=p.get("multi_format", "auto"),
+                    two_item_template=p.get("two_item_template",
+                                            tp.DEFAULT_TWO_ITEM_TEMPLATE),
+                    keep_empty=bool(p.get("keep_empty", False)),
+                    pick_count=int(p.get("pick_count", 1) or 1)))
+    _json_route(routes, "/vrgdg/text_tools/multi_pick",
+                lambda p: tp.run_multi_picker(p.get("pickers") or [],
+                                              p.get("joiner", "newline")))
+
+
+def _graph_routes(routes, ctx: _Context) -> None:
+    """The graph-glue plans: a LoRA application plan (applied on the
+    device by :func:`vrgdg_tpu_torch.ops.lora.apply_lora_plan`, which
+    the caller runs) and a mute/group event plan; host-only."""
+    _json_route(routes, "/vrgdg/graph/lora_plan", gp.lora_plan_from_payload)
+    _json_route(routes, "/vrgdg/graph/state_plan",
+                gp.state_plan_from_payload)
+
+
 def _status_routes(routes, ctx: _Context) -> None:
     @routes.get("/vrgdg/health")
     @_handler
@@ -1161,7 +1315,9 @@ _ROUTE_GROUPS = (_enhancer_routes, _lut_grain_adjust_routes, _audio_routes,
                  _text_file_routes, _storyboard_routes, _video_editor_routes,
                  _lora_dataset_routes, _status_routes, _ui_routes,
                  _workflow_runner_routes, _prompt_creator_routes,
-                 _start_storyboard_routes, _krea2_studio_routes)
+                 _start_storyboard_routes, _krea2_studio_routes,
+                 _lyrics_routes, _llm_batch_routes, _text_picker_routes,
+                 _graph_routes)
 
 
 def create_app(base_folder: str | None = None, luts_dir: str | None = None,
