@@ -178,11 +178,21 @@ Phases, one line each (any failure raises and the exit code is not 0):
     ``lyrics``, ``llm-batch`` (four actions) and ``graph`` (two) commands
     run in processes of their own beside the rest, each output equal to
     the in-process call.  The roots must end as equal trees, none of the
-    six kernels may launch, and the phase must end within 90 s.
+    six kernels may launch, and the phase must end within 90 s;
+21. bench: ``vrgdg_tpu_torch.bench.run`` at 8 steps a chain without the
+    host-CPU oracle: the probes, the seven configs, the five 4K stages
+    and the enhance step, each with fps > 0, the fused configs launching
+    ``grade_phase1`` and ``grade_phase2``, ``fused_4k_pallas_grain`` and
+    the enhance step ``film_grain``, and the headline within 1.05 of the
+    card floor; the perf lab's eight LUT variants within 1e-6 of
+    ``apply_lut`` on the card, and its plane vs rowmajor A/B at 4K x 2
+    (2 steps) launching ``grade_phase1_planes`` and
+    ``grade_phase2_planes``.  The phase must end within 60 s.
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
-runs, 17's grade, enhancer and concurrent requests, and 18's, 19's and
-20's requests and commands) is driven with the launch counts set to 0 just before it and
+runs, 17's grade, enhancer and concurrent requests, 18's, 19's and
+20's requests and commands, and 21's bench configs and A/B layouts) is
+driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
 ``launches`` in the record sum every path that launched it.  The last
@@ -4959,6 +4969,92 @@ def text_phase(device) -> None:
                              f"{TEXT_LIMIT_S} s")
 
 
+# phase 21: the port's bench at 8 steps a chain without the host-CPU
+# oracle (the full bench runs 64: python3 -m vrgdg_tpu_torch.bench), the
+# perf lab's LUT variants against apply_lut on the card, and its layout
+# A/B (plane vs rowmajor) at 4K x 2 over 2 steps
+BENCH_STEPS = 8
+BENCH_LAYOUT_STEPS = 2
+BENCH_LIMIT_S = 60.0
+# kernels each layout of the A/B must launch
+LAYOUT_KERNELS = {"plane": ("grade_phase1_planes", "grade_phase2_planes"),
+                  "rowmajor": ("grade_phase1", "grade_phase2_planes")}
+
+
+def _launched(label: str, launches: dict, kernels) -> None:
+    for kernel in kernels:
+        if not launches.get(kernel):
+            raise AssertionError(f"{label} launched no {kernel}: {launches}")
+
+
+def bench_phase(device, card: str) -> dict:
+    """Phase 21: ``vrgdg_tpu_torch.bench.run`` on the card (every config
+    and stage with fps > 0, the fused configs launching both grade
+    kernels, the kernel-grain config and the enhance step ``film_grain``,
+    the headline within 1.05 of the card floor), the perf lab's LUT
+    variants within 1e-6 of ``apply_lut`` and its plane/rowmajor A/B
+    launching the planes kernels.  Returns the launches of the bench's
+    configs and the A/B, each counted from 0 around its own run."""
+    from vrgdg_tpu_torch import bench
+    from vrgdg_tpu_torch.tools import perf_lab
+
+    started = time.perf_counter()
+    result = bench.run(device, steps=BENCH_STEPS, oracle=False)
+    configs = result["configs"]
+    launches: dict = {}
+    for name, detail in configs.items():
+        if not detail["fps"] > 0:
+            raise AssertionError(f"bench {name}: fps {detail['fps']}")
+        _add(launches, detail["launches"])
+    for name in ("fused_4k_pallas2", "fused_4k_pallas2_adjust"):
+        _launched(f"bench {name}", configs[name]["launches"],
+                  ("grade_phase1", "grade_phase2"))
+    for name in ("fused_4k_pallas_grain", "enhance_step_1080p_to_4k"):
+        _launched(f"bench {name}", configs[name]["launches"], ("film_grain",))
+    stages = result["stage_ms_per_4k_frame"]
+    if set(stages) != set(bench.STAGES) or not all(
+            ms > 0 for ms in stages.values()):
+        raise AssertionError(f"bench stages: {stages}")
+    if not 0 < result["pct_of_card_floor"] <= 1.05:
+        raise AssertionError(f"bench pct_of_card_floor "
+                             f"{result['pct_of_card_floor']}")
+    parity = {name: perf_lab.parity(name, device)
+              for name in perf_lab.VARIANTS}
+    layouts = perf_lab.phase1_layout_ab(steps=BENCH_LAYOUT_STEPS,
+                                        device=device, card=card)
+    for layout, kernels in LAYOUT_KERNELS.items():
+        _launched(f"perf_lab {layout}", layouts[layout]["launches"], kernels)
+        _add(launches, layouts[layout]["launches"])
+    elapsed = time.perf_counter() - started
+    _say("bench", steps=BENCH_STEPS,
+         fps=json.dumps({k: round(v["fps"], 2) for k, v in configs.items()},
+                        separators=(",", ":")),
+         device_ms_per_frame=json.dumps(
+             {k: round(v["device_ms_per_frame"], 4)
+              for k, v in configs.items()}, separators=(",", ":")),
+         busy_share=json.dumps(
+             {k: None if v["busy_share"] is None else round(v["busy_share"], 4)
+              for k, v in configs.items()}, separators=(",", ":")),
+         stage_ms=json.dumps({k: round(v, 4) for k, v in stages.items()},
+                             separators=(",", ":")),
+         elementwise_gbps=f"{result['elementwise_gbps']:.1f}",
+         gather_grows_per_s=f"{result['gather_grows_per_s']:.4f}",
+         copy_4k_x2_ms=f"{result['copy_4k_x2_ms']:.4f}",
+         card_floor_fps=f"{result['card_floor_fps']:.1f}",
+         pct_of_card_floor=f"{result['pct_of_card_floor']:.4f}",
+         headline=f"'{result['headline_mode']}'",
+         lut_variant_max_err=f"{max(parity.values()):.3g}<=1e-6",
+         layout_device_ms=json.dumps(
+             {k: round(v["device_ms_per_batch"], 4)
+              for k, v in layouts.items()}, separators=(",", ":")),
+         launches=json.dumps(launches, separators=(",", ":")),
+         phase_s=f"{elapsed:.2f}", limit_s=BENCH_LIMIT_S, card=f"'{card}'")
+    if elapsed > BENCH_LIMIT_S:
+        raise AssertionError(f"phase 21 took {elapsed:.1f} s, over "
+                             f"{BENCH_LIMIT_S} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5028,6 +5124,7 @@ def main() -> int:
     builder_phase(device)
     workflow_phase(device)
     text_phase(device)
+    _add(launches, bench_phase(device, card))
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

@@ -589,3 +589,29 @@ def test_grade_on_mesh_on_one_card():
     assert float((spatial - single).abs().max()) <= 1e-5
     assert torch.equal(grade_on_mesh(frames, eager, mesh, lut=lut,
                                      ref_stats=ref_stats), single)
+
+
+@pytest.mark.cuda
+def test_bench_runs_small_on_the_card():
+    """``vrgdg_tpu_torch.bench.run`` at 2 steps a chain: every config and
+    stage measured, the fused configs launching both grade kernels, the
+    kernel-grain config and the enhance step launching ``film_grain``,
+    and the headline under the card floor (its CPU twin is
+    ``tests/test_torch_bench.py``, which needs JAX)."""
+    from vrgdg_tpu_torch import bench
+
+    result = bench.run(_card(), steps=2, oracle=False)
+    configs = result["configs"]
+    assert set(configs) == {name for name, *_ in bench.CONFIGS} | {
+        "enhance_step_1080p_to_4k"}
+    assert all(c["fps"] > 0 and c["device_ms_per_frame"] > 0
+               for c in configs.values())
+    for name in ("fused_4k_pallas2", "fused_4k_pallas2_adjust"):
+        assert configs[name]["mode"] == bench.FUSED_MODE
+        assert configs[name]["launches"]["grade_phase1"] > 0
+        assert configs[name]["launches"]["grade_phase2"] > 0
+    for name in ("fused_4k_pallas_grain", "enhance_step_1080p_to_4k"):
+        assert configs[name]["launches"]["film_grain"] > 0
+    assert set(result["stage_ms_per_4k_frame"]) == set(bench.STAGES)
+    assert 0 < result["pct_of_card_floor"] <= 1.05
+    assert result["device"]["name"] == torch.cuda.get_device_name(0)

@@ -13,10 +13,14 @@ Two implementations of the same math, bit-identical to each other:
   table;
 - :func:`apply_lut_bundle` reads all eight in one row gather from the
   ``(N^3, 24)`` corner bundle (:func:`vrgdg_tpu_torch.core.cube.corner_bundle`).
+
+:func:`lut_identity_error` runs a dense identity probe through
+:func:`apply_lut` and returns its max abs error.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.cube import LutData
@@ -124,3 +128,16 @@ def apply_lut_bundle(frames: torch.Tensor, bundle: torch.Tensor,
     rows = bundle.to(torch.float32)[cell]                 # (..., 24)
     corners = [rows[..., 3 * k:3 * k + 3] for k in range(8)]
     return _finish(frames, source, _trilerp(corners, frac), strength)
+
+
+def lut_identity_error(lut, size_probe: int = 64, device="cuda") -> float:
+    """Max abs error of a LUT applied to a dense identity probe, a cheap
+    property check that an identity lattice grades to identity.  The probe
+    (``size_probe^3`` colours) runs through :func:`apply_lut` on
+    ``device``."""
+    axis = np.linspace(0.0, 1.0, size_probe, dtype=np.float32)
+    rgb = np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), axis=-1)
+    rgb = rgb.reshape(1, size_probe, size_probe * size_probe, 3)
+    probe = torch.from_numpy(rgb).to(device)
+    out = apply_lut(probe, lut)
+    return float(torch.max(torch.abs(out - probe)))
