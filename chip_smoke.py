@@ -187,11 +187,27 @@ Phases, one line each (any failure raises and the exit code is not 0):
     card floor; the perf lab's eight LUT variants within 1e-6 of
     ``apply_lut`` on the card, and its plane vs rowmajor A/B at 4K x 2
     (2 steps) launching ``grade_phase1_planes`` and
-    ``grade_phase2_planes``.  The phase must end within 60 s.
+    ``grade_phase2_planes``.  The phase must end within 60 s;
+22. adjust sweep: seeded uniform 2 x 64 x 3840 frames (numpy), the
+    flagship LUT at 8, colour match 0.7, unsharp 1.5, grain off; each of
+    the eleven sliders ``grade_phase1`` fuses alone (temperature, tint,
+    exposure, contrast, saturation, highlights, shadows, whites, blacks
+    at -100, 37 and 100; vignette and fade at 37 and 100) and all eleven
+    from a seeded draw within +-80: ``grade_phase1`` against its plain
+    version (LAB <= 5e-4, partials and A/B coefficients by
+    tests/test_torch_cuda.py's rules), and the fused stack through
+    ``grade_prepared`` against the same stack on the plain versions (RGB
+    <= 2e-5), except saturation -100 and contrast -100, whose flat
+    channels make colour match ill-conditioned: there only phase 1 is
+    judged and the stack's difference is printed.  Then ``film_grain`` at
+    saturation_mix 0 and 1, intensity 1.0, and seed 2**31 - 1 from frame
+    5 against its plain version, each batch of 2 bit for bit as 1 + 1.
+    One line a slider; the phase must end within 30 s.
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
 runs, 17's grade, enhancer and concurrent requests, 18's, 19's and
-20's requests and commands, and 21's bench configs and A/B layouts) is
+20's requests and commands, 21's bench configs and A/B layouts, and
+22's stack runs) is
 driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
@@ -5055,6 +5071,215 @@ def bench_phase(device, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 22: every adjust slider grade_phase1 fuses, and film_grain's edges
+# --------------------------------------------------------------------------
+
+# seeded uniform frames made with numpy, the flagship LUT at 8, colour
+# match 0.7, unsharp 1.5 zero border, grain off; each of the eleven
+# sliders alone (the bipolar ones at -100, 37 and 100, the intensity-only
+# ones at 37 and 100), then all eleven from a seeded draw within +-80
+SWEEP_SHAPE = (2, 64, 3840)
+SWEEP_SEED = 2201
+SWEEP_BIPOLAR = ("temperature", "tint", "exposure", "contrast",
+                 "saturation", "highlights", "shadows", "whites", "blacks")
+SWEEP_INTENSITY = ("vignette", "fade")
+# Under colour match these leave a and b (saturation) or the whole frame
+# (contrast) flat, and the transfer scales a flat channel's float32
+# rounding by ref_std / 1e-5 (the reference's math, ROADMAP queue 3): only
+# phase 1 is judged, the stack's difference is printed
+SWEEP_FLAT = (("saturation", -100.0), ("contrast", -100.0))
+SWEEP_LIMIT_S = 30.0
+# film_grain's edges at the sweep's shape: (intensity, saturation_mix,
+# seed, frame_start); the last one's key wraps past 2**31 - 1
+GRAIN_EDGES = ((0.05, 0.0, 42, 5), (0.05, 1.0, 42, 5), (1.0, 0.5, 42, 5),
+               (0.05, 0.5, 2 ** 31 - 1, 5))
+
+
+def sweep_cases() -> list:
+    """``(slider or "all", settings)`` of phase 22, in order."""
+    cases = [(name, {name: value}) for name in SWEEP_BIPOLAR
+             for value in (-100.0, 37.0, 100.0)]
+    cases += [(name, {name: value}) for name in SWEEP_INTENSITY
+              for value in (37.0, 100.0)]
+    rng = np.random.default_rng(SWEEP_SEED)
+    drawn = {name: float(rng.uniform(-80.0, 80.0)) for name in SWEEP_BIPOLAR}
+    drawn.update({name: float(rng.uniform(0.0, 80.0))
+                  for name in SWEEP_INTENSITY})
+    return cases + [("all", drawn)]
+
+
+def partials_err(lab: torch.Tensor, partials: torch.Tensor) -> float:
+    """The rule for phase 1's partials (tests/test_torch_cuda.py uses it
+    too): each frame's rows are the float64 chunk sums (and sums of
+    squares) of the kernel's own BHWC LAB, within rtol 1e-12 and atol
+    1e-9; returns the largest difference and raises outside."""
+    from vrgdg_tpu_torch.kernels.grade_cuda import PHASE1_BLOCK
+
+    batch, pixels = lab.shape[0], lab.shape[1] * lab.shape[2]
+    rows = torch.nn.functional.pad(
+        lab.reshape(batch, -1, 3).double(),
+        (0, 0, 0, partials.shape[1] * PHASE1_BLOCK - pixels))
+    rows = rows.reshape(batch, partials.shape[1], PHASE1_BLOCK, 3)
+    sums = torch.cat([rows.sum(2), (rows * rows).sum(2)], dim=-1)
+    if not torch.allclose(partials, sums, rtol=1e-12, atol=1e-9):
+        raise AssertionError("phase 1's partials are not the chunk sums of "
+                             "its LAB")
+    return _max_err(partials, sums)
+
+
+def coefficients_err(lab_k, lab_p, coeff_k, coeff_p, ref_std,
+                     strength: float) -> float:
+    """The rule for the stats barrier's A/B at every frame size
+    (tests/test_torch_cuda.py uses it too).  A = s sigma_ref / sigma +
+    (1 - s) and B = s (mu_ref - mu A') divide by each frame's LAB std, so
+    the kernel's and the plain version's LAB, an ulp or two apart, move
+    them by up to s sigma_ref |d sigma| / sigma^2 (and B also by |d mu|
+    gain + |mu| d gain).  That change, measured from the two BHWC LABs in
+    float64, twice over, plus 1e-5 is the bound: about 1e-5 on frames of
+    many pixels, where the ulps average out, and wider on a frame of a
+    few.  Returns the largest error and raises outside."""
+    def stats(lab):
+        x = lab.reshape(lab.shape[0], -1, 3).double()
+        return x.mean(1), x.std(1) + 1e-5
+
+    (mean_k, std_k), (mean_p, std_p) = stats(lab_k), stats(lab_p)
+    ref = ref_std.reshape(1, 3).double()
+    gain = ref / torch.minimum(std_k, std_p)
+    d_gain = ref * (std_k - std_p).abs() / (std_k * std_p)
+    d_b = (mean_k - mean_p).abs() * gain \
+        + torch.maximum(mean_k.abs(), mean_p.abs()) * d_gain
+    bound = 1e-5 + 2 * strength * torch.cat([d_gain, d_b], dim=1)
+    err = (coeff_k.double() - coeff_p.double()).abs()
+    if not bool((err <= bound).all()):
+        raise AssertionError(f"A/B coefficients {float(err.max())} past "
+                             f"their bound by {float((err - bound).max())}")
+    return float(err.max())
+
+
+def _grain_edges(frames) -> float:
+    """``film_grain`` at :data:`GRAIN_EDGES` against its plain version, and
+    each batch of 2 bit for bit as frames 0 and 1 graded apart."""
+    from vrgdg_tpu_torch.kernels.grain_cuda import film_grain_kernel
+    from vrgdg_tpu_torch.ops.grain import film_grain
+
+    worst = 0.0
+    for intensity, mix, seed, start in GRAIN_EDGES:
+        label = f"grain {intensity:g}/{mix:g}/seed {seed}/start {start}"
+        got = film_grain_kernel(frames, intensity, mix, seed,
+                                frame_start=start)
+        err = _max_err(got, film_grain(frames, intensity, mix, seed,
+                                       frame_start=start))
+        _check(label, err, BOUNDS["rgb_grain_on"])
+        split = torch.cat([
+            film_grain_kernel(frames[0:1], intensity, mix, seed, start),
+            film_grain_kernel(frames[1:2], intensity, mix, seed, start + 1)])
+        if not torch.equal(got, split):
+            raise AssertionError(f"{label}: frames[0:2] != frames[0:1] + "
+                                 "frames[1:2]")
+        _say("grain-edge", intensity=intensity, saturation_mix=mix,
+             seed=seed, frame_start=start,
+             err=f"{err:.3g}<={BOUNDS['rgb_grain_on']:g}",
+             split_1_1="bit-identical")
+        worst = max(worst, err)
+    return worst
+
+
+def adjust_sweep_phase(device, card: str) -> tuple[dict, dict]:
+    """Phase 22: for each case of :func:`sweep_cases`, ``grade_phase1``
+    against its plain version (LAB, partials; the A/B coefficients too
+    where the frame is not flat) and the fused stack through
+    ``grade_prepared`` against the same stack on the plain versions (RGB,
+    grain off; printed only for :data:`SWEEP_FLAT`); then ``film_grain``'s
+    edges.  Returns the stack runs' launches, each counted from 0 around
+    its run, and the worst ``grade_phase1`` and ``film_grain`` errors."""
+    from vrgdg_tpu_torch.api import appliers
+    from vrgdg_tpu_torch.kernels import grade_cuda as gc
+    from vrgdg_tpu_torch.ops.grade import (_active_adjust, grade_prepared,
+                                           prepare_operands)
+
+    started = time.perf_counter()
+    _, lut, ref_stats = _stack(device)
+    frames = torch.from_numpy(np.random.default_rng(SWEEP_SEED).uniform(
+        0.0, 1.0, (*SWEEP_SHAPE, 3)).astype(np.float32)).to(device)
+    pixels = SWEEP_SHAPE[1] * SWEEP_SHAPE[2]
+    strength = FLAGSHIP["match_strength"]
+    launches: dict = {}
+    rows: dict = {}
+    for slider, adjust in sweep_cases():
+        config = appliers.grade_config(
+            lut=lut, lut_strength=FLAGSHIP["lut_strength"], adjust=adjust,
+            ref_stats=ref_stats, match_strength=strength,
+            sharpen_strength=FLAGSHIP["sharpen_strength"],
+            fused_mode="fused")
+        operands = prepare_operands(config, lut=lut, ref_stats=ref_stats,
+                                    device=device)
+        table, dmin, dmax, ref_mean, ref_std = operands
+        settings = _active_adjust(config)
+        blend = config.lut.strength / 10.0
+        domain = gc.lut_domain(dmin, dmax)
+        label = f"sweep {json.dumps(adjust)}"
+        lab_k, part_k = gc.phase1(frames, table, domain, blend=blend,
+                                  adjust=settings)
+        lab_p, part_p = gc.phase1_plain(frames, table, domain, blend=blend,
+                                        adjust=settings)
+        lab_err = _max_err(lab_k, lab_p)
+        _check(f"{label} LAB", lab_err, BOUNDS["lab"])
+        row = rows.setdefault(slider, {"values": [], "lab": 0.0,
+                                       "partials": 0.0, "coeff": 0.0,
+                                       "rgb": 0.0, "rgb_flat": []})
+        row["values"].append(",".join(
+            f"{name}={value:.2f}" for name, value in adjust.items())
+            if slider == "all" else f"{adjust[slider]:g}")
+        row["lab"] = max(row["lab"], lab_err)
+        row["partials"] = max(row["partials"], partials_err(lab_k, part_k))
+        got, counts = _counted(lambda: grade_prepared(frames, config,
+                                                      *operands))
+        _expect(label, counts, {"grade_phase1": 1, "grade_phase2": 1})
+        _add(launches, counts)
+        want = gc.fused_post_gather_plain(
+            frames, table, dmin, dmax, ref_mean, ref_std, 0, blend=blend,
+            match_strength=strength,
+            sharpen_strength=config.sharpen.strength, grain_intensity=0.0,
+            saturation_mix=0.5, adjust=settings)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: the fused stack gave non-finite "
+                                 "values")
+        rgb_err = _max_err(got, want)
+        if (slider, adjust.get(slider)) in SWEEP_FLAT:
+            row["rgb_flat"].append(f"{rgb_err:.3g}")
+        else:
+            coeff_k, coeff_p = (gc.stats_barrier(p, pixels, ref_mean,
+                                                 ref_std, strength)
+                                for p in (part_k, part_p))
+            row["coeff"] = max(row["coeff"], coefficients_err(
+                lab_k, lab_p, coeff_k, coeff_p, ref_std, strength))
+            _check(f"{label} RGB", rgb_err, BOUNDS["rgb_grain_off"])
+            row["rgb"] = max(row["rgb"], rgb_err)
+        del lab_k, lab_p, part_k, part_p, got, want
+    for slider, row in rows.items():
+        _say("adjust-sweep", slider=slider, values=",".join(row["values"]),
+             lab_err=f"{row['lab']:.3g}<={BOUNDS['lab']:g}",
+             partials_err=f"{row['partials']:.3g}",
+             coeff_err=f"{row['coeff']:.3g}",
+             rgb_err=f"{row['rgb']:.3g}<={BOUNDS['rgb_grain_off']:g}",
+             **({"rgb_err_flat_unjudged": ",".join(row["rgb_flat"])}
+                if row["rgb_flat"] else {}))
+    errors = {"grade_phase1": max(row["lab"] for row in rows.values()),
+              "film_grain": _grain_edges(frames)}
+    elapsed = time.perf_counter() - started
+    _say("adjust-sweep", shape=_label(SWEEP_SHAPE),
+         cases=len(sweep_cases()),
+         launches=json.dumps(launches, separators=(",", ":")),
+         phase_s=f"{elapsed:.2f}", limit_s=SWEEP_LIMIT_S, card=f"'{card}'")
+    del frames
+    torch.cuda.empty_cache()
+    if elapsed > SWEEP_LIMIT_S:
+        raise AssertionError(f"phase 22 took {elapsed:.1f} s, over "
+                             f"{SWEEP_LIMIT_S} s")
+    return launches, errors
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5125,6 +5350,10 @@ def main() -> int:
     workflow_phase(device)
     text_phase(device)
     _add(launches, bench_phase(device, card))
+    sweep_launches, sweep_errors = adjust_sweep_phase(device, card)
+    _add(launches, sweep_launches)
+    for name, err in sweep_errors.items():
+        errors[name] = max(errors[name], err)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

@@ -22,7 +22,6 @@ import sys
 import numpy as np
 import pytest
 import torch
-import torch.nn.functional as F
 
 from vrgdg_tpu_torch.api import appliers
 from vrgdg_tpu_torch.core.cube import parse_cube
@@ -34,8 +33,8 @@ from vrgdg_tpu_torch.ops.color_match import lab_statistics
 from vrgdg_tpu_torch.ops.grade import prepare_operands
 from vrgdg_tpu_torch.ops.grain import film_grain
 
-LUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "LUTS", "teal_orange.cube")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+LUT = os.path.join(REPO, "LUTS", "teal_orange.cube")
 ADJUST = {"contrast": 12.0, "vignette": 20.0, "saturation": -10.0}
 
 
@@ -45,41 +44,29 @@ def _card() -> torch.device:
     return torch.device("cuda")
 
 
+def _smoke():
+    """chip_smoke.py, loaded by path: the phases' checks live there."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def _check_partials(lab: torch.Tensor, partials: torch.Tensor) -> None:
     """Each frame's partials are the float64 chunk sums (and sums of
-    squares) of the kernel's own BHWC LAB."""
-    batch = lab.shape[0]
-    pixels = lab.shape[1] * lab.shape[2]
-    rows = F.pad(lab.reshape(batch, -1, 3).double(),
-                 (0, 0, 0, partials.shape[1] * gc.PHASE1_BLOCK - pixels))
-    rows = rows.reshape(batch, partials.shape[1], gc.PHASE1_BLOCK, 3)
-    sums = torch.cat([rows.sum(2), (rows * rows).sum(2)], dim=-1)
-    assert torch.allclose(partials, sums, rtol=1e-12, atol=1e-9)
+    squares) of the kernel's own BHWC LAB (``chip_smoke.partials_err``)."""
+    _smoke().partials_err(lab, partials)
 
 
 def _check_coefficients(lab_k, lab_p, coeff_k, coeff_p, ref_stats,
                         strength=0.7) -> None:
-    """A = s sigma_ref / sigma + (1 - s) and B = s (mu_ref - mu A') divide
-    by each frame's LAB std, so the kernel's and the plain version's LAB,
-    an ulp or two apart, move them by up to s sigma_ref |d sigma| /
-    sigma^2 (and B also by |d mu| gain + |mu| d gain).  That change,
-    measured from the two BHWC LABs in float64, twice over, plus 1e-5 is
-    the bound: about 1e-5 on frames of many pixels, where the ulps
-    average out, and wider on a frame of a few."""
-    def stats(lab):
-        x = lab.reshape(lab.shape[0], -1, 3).double()
-        return x.mean(1), x.std(1) + 1e-5
-
-    (mean_k, std_k), (mean_p, std_p) = stats(lab_k), stats(lab_p)
-    ref_std = ref_stats[1].reshape(1, 3).double()
-    gain = ref_std / torch.minimum(std_k, std_p)
-    d_gain = ref_std * (std_k - std_p).abs() / (std_k * std_p)
-    d_b = (mean_k - mean_p).abs() * gain \
-        + torch.maximum(mean_k.abs(), mean_p.abs()) * d_gain
-    bound = 1e-5 + 2 * strength * torch.cat([d_gain, d_b], dim=1)
-    err = (coeff_k.double() - coeff_p.double()).abs()
-    assert bool((err <= bound).all()), (float(err.max()),
-                                        float((err - bound).max()))
+    """The A/B coefficients within the change the two LABs' statistics
+    make in them (``chip_smoke.coefficients_err``)."""
+    _smoke().coefficients_err(lab_k, lab_p, coeff_k, coeff_p, ref_stats[1],
+                              strength)
 
 
 def _config(device):
@@ -357,7 +344,6 @@ def test_main_path_on_card_matches_cpu():
 ENHANCE = EnhancerSettings.normalize({
     "upscale_resolution": "4k", "sharpen_strength": 1.0,
     "grain_enabled": True, "grain_intensity": 0.05, "seed": 42})
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.cuda

@@ -184,6 +184,29 @@ def test_submit_is_deferred_and_uint8_quantizes_the_float_result():
         pending.result(), np.clip(as_float * 255.0, 0, 255).astype(np.uint8))
 
 
+@pytest.mark.parametrize("mesh", [None, "cpu"])
+def test_batch_functions_take_the_jax_positions(mesh):
+    """``(frames, settings, out_height, out_width, frame_start, mesh,
+    as_uint8)`` by position, as vrgdg_tpu.jobs.enhancer takes them, in all
+    three batch functions; ``device`` stays a keyword."""
+    settings = EnhancerSettings.normalize({"sharpen_strength": 1.0, **GRAIN})
+    u8 = np.random.default_rng(6).integers(0, 256, (3, 12, 16, 3), np.uint8)
+    mesh = None if mesh is None else _cpu_mesh()
+    want = tenh.apply_effects_batch(u8, settings, 20, 30, 4, device="cpu",
+                                    as_uint8=True)
+    assert want.dtype == np.uint8 and want.shape == (3, 20, 30, 3)
+    np.testing.assert_array_equal(
+        tenh.apply_effects_batch(u8, settings, 20, 30, 4, mesh, True,
+                                 device="cpu"), want)
+    np.testing.assert_array_equal(
+        tenh.submit_effects_batch(u8, settings, 20, 30, 4, mesh, True,
+                                  device="cpu").result(), want)
+    out, smallest = tenh.process_with_retry(u8, settings, 20, 30, 4, mesh,
+                                            True, device="cpu")
+    np.testing.assert_array_equal(out, want)
+    assert smallest == 3
+
+
 def test_mesh_for_settings_refuses_more_than_one_card(monkeypatch):
     """Since the port has a mesh, more than one card builds one (as the
     JAX package's ``mesh_for_settings`` does) instead of raising; one

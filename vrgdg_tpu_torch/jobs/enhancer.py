@@ -245,8 +245,9 @@ def _submit_on_mesh(host: torch.Tensor, count: int, step, spatial_step,
 def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                          out_height: int | None = None,
                          out_width: int | None = None,
-                         frame_start: int = 0, *, device="cuda", mesh=None,
-                         as_uint8: bool = False) -> PendingBatch:
+                         frame_start: int = 0, mesh=None,
+                         as_uint8: bool = False, *,
+                         device="cuda") -> PendingBatch:
     """Queue the device step on ``device`` (or over ``mesh``) WITHOUT
     waiting for it.
 
@@ -306,8 +307,9 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
 def apply_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                         out_height: int | None = None,
                         out_width: int | None = None,
-                        frame_start: int = 0, *, device="cuda", mesh=None,
-                        as_uint8: bool = False) -> np.ndarray:
+                        frame_start: int = 0, mesh=None,
+                        as_uint8: bool = False, *,
+                        device="cuda") -> np.ndarray:
     """Host wrapper: BHWC host batch in, enhanced BHWC host batch out
     (synchronous; see :func:`submit_effects_batch`)."""
     return submit_effects_batch(frames, settings, out_height, out_width,
@@ -322,8 +324,8 @@ def _is_oom(exc: BaseException) -> bool:
 
 def process_with_retry(frames: np.ndarray, settings: EnhancerSettings,
                        out_height: int, out_width: int,
-                       frame_start: int, *, device="cuda", mesh=None,
-                       as_uint8: bool = False) -> tuple[np.ndarray, int]:
+                       frame_start: int, mesh=None, as_uint8: bool = False,
+                       *, device="cuda") -> tuple[np.ndarray, int]:
     """Bisect the batch on device OOM, like the reference's CUDA retry
     (``VRGDG_StandaloneVideoEnhancerNodes.py:297-308``); returns
     ``(frames, smallest_successful_batch)``."""
