@@ -183,8 +183,7 @@ Phases, one line each (any failure raises and the exit code is not 0):
     host-CPU oracle: the probes, the seven configs, the five 4K stages
     and the enhance step, each with fps > 0, the fused configs launching
     ``grade_phase1`` and ``grade_phase2``, ``fused_4k_pallas_grain`` and
-    the enhance step ``film_grain``, and the headline within 1.05 of the
-    card floor; the perf lab's eight LUT variants within 1e-6 of
+    the enhance step ``film_grain``; the perf lab's eight LUT variants within 1e-6 of
     ``apply_lut`` on the card, and its plane vs rowmajor A/B at 4K x 2
     (2 steps) launching ``grade_phase1_planes`` and
     ``grade_phase2_planes``.  The phase must end within 60 s;
@@ -5006,10 +5005,9 @@ def _launched(label: str, launches: dict, kernels) -> None:
 def bench_phase(device, card: str) -> dict:
     """Phase 21: ``vrgdg_tpu_torch.bench.run`` on the card (every config
     and stage with fps > 0, the fused configs launching both grade
-    kernels, the kernel-grain config and the enhance step ``film_grain``,
-    the headline within 1.05 of the card floor), the perf lab's LUT
-    variants within 1e-6 of ``apply_lut`` and its plane/rowmajor A/B
-    launching the planes kernels.  Returns the launches of the bench's
+    kernels, the kernel-grain config and the enhance step ``film_grain``),
+    the perf lab's LUT variants within 1e-6 of ``apply_lut`` and its
+    plane/rowmajor A/B launching the planes kernels.  Returns the launches of the bench's
     configs and the A/B, each counted from 0 around its own run."""
     from vrgdg_tpu_torch import bench
     from vrgdg_tpu_torch.tools import perf_lab
@@ -5031,9 +5029,6 @@ def bench_phase(device, card: str) -> dict:
     if set(stages) != set(bench.STAGES) or not all(
             ms > 0 for ms in stages.values()):
         raise AssertionError(f"bench stages: {stages}")
-    if not 0 < result["pct_of_card_floor"] <= 1.05:
-        raise AssertionError(f"bench pct_of_card_floor "
-                             f"{result['pct_of_card_floor']}")
     parity = {name: perf_lab.parity(name, device)
               for name in perf_lab.VARIANTS}
     layouts = perf_lab.phase1_layout_ab(steps=BENCH_LAYOUT_STEPS,
@@ -5048,16 +5043,11 @@ def bench_phase(device, card: str) -> dict:
          device_ms_per_frame=json.dumps(
              {k: round(v["device_ms_per_frame"], 4)
               for k, v in configs.items()}, separators=(",", ":")),
-         busy_share=json.dumps(
-             {k: None if v["busy_share"] is None else round(v["busy_share"], 4)
-              for k, v in configs.items()}, separators=(",", ":")),
          stage_ms=json.dumps({k: round(v, 4) for k, v in stages.items()},
                              separators=(",", ":")),
          elementwise_gbps=f"{result['elementwise_gbps']:.1f}",
          gather_grows_per_s=f"{result['gather_grows_per_s']:.4f}",
          copy_4k_x2_ms=f"{result['copy_4k_x2_ms']:.4f}",
-         card_floor_fps=f"{result['card_floor_fps']:.1f}",
-         pct_of_card_floor=f"{result['pct_of_card_floor']:.4f}",
          headline=f"'{result['headline_mode']}'",
          lut_variant_max_err=f"{max(parity.values()):.3g}<=1e-6",
          layout_device_ms=json.dumps(

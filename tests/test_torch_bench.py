@@ -13,7 +13,6 @@ originals are loaded here by path and left as they are.  Checked:
   JAX ``pallas`` configs run in interpret mode); the grain steps are held
   by determinism (the same frame start, the same bits);
 - ``frames_for`` is the JAX bench's numpy draw, bit for bit;
-- the card floor's bytes at 4K x 2 are 48 a pixel plus the bundle;
 - the timed functions raise without a card and ``main`` returns 1;
 - ``bench_oracle_cpu`` keeps its original's source but for the import;
 - every perf-lab variant matches the JAX lab's ``build_variant`` and the
@@ -163,15 +162,6 @@ def test_frames_for_is_the_jax_draw():
     want = np.asarray(JAX_BENCH.frames_for(*STEP_SHAPE))
     assert got.dtype == torch.float32
     assert np.array_equal(got.numpy(), want)
-
-
-def test_card_floor_counts_48_bytes_a_pixel_plus_the_bundle():
-    pixels = 2 * 2160 * 3840
-    bundle = 33 ** 3 * 24 * 4
-    assert bench.fused_stack_bytes(2, 2160, 3840) == 48 * pixels + bundle
-    assert bench.fused_stack_bytes(2, 2160, 3840) == 799_712_352
-    assert bench.card_floor_fps(3350.0) == pytest.approx(
-        2 / ((48 * pixels + bundle) / 3.35e12), rel=1e-12)
 
 
 def test_timed_functions_raise_without_a_card():

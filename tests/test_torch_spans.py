@@ -1,0 +1,242 @@
+"""The port's program spans (``vrgdg_tpu_torch.runtime.profiling.span``)
+on the CPU.
+
+- With no profiler on, a span records nothing and never enters
+  ``record_function``; a stage of ``StageTimer`` still times.
+- Under ``torch.profiler`` (CPU): the ``vrgdg.<name>`` ranges, parent
+  links, the ``stream`` / ``batch`` numbers taken from the enclosing span,
+  the counts; a span held open across a generator's ``yield`` leaves the
+  parent stack straight.
+- ``stream_graded_batches`` over a 5-frame clip at batch 2: one
+  ``batch.pad`` of one frame, ``batch.enqueue`` frames summing to 6 (5
+  real), the fused grade's phases under each enqueue.
+- ``enhance_batches``: one ``batch.enqueue`` a batch, the step's parts
+  under it.
+- ``stage_seconds`` keeps exactly its keys with the profiler on.
+- The log drops its oldest records at its bound and counts them.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from vrgdg_tpu_torch.api.appliers import (grade_config, grade_effect,
+                                          stream_graded_batches)
+from vrgdg_tpu_torch.core.cube import build_palette_lut
+from vrgdg_tpu_torch.core.params import EnhancerSettings
+from vrgdg_tpu_torch.jobs.enhancer import enhance_batches
+from vrgdg_tpu_torch.ops.color_match import lab_statistics
+from vrgdg_tpu_torch.runtime import profiling
+from vrgdg_tpu_torch.runtime.profiling import (SPANS, SpanLog, SpanRecord,
+                                               StageTimer, span)
+
+CLIP = np.random.default_rng(3).integers(0, 256, (5, 12, 20, 3), np.uint8)
+BATCHES = [(0, CLIP[0:2]), (2, CLIP[2:4]), (4, CLIP[4:5])]
+
+
+def _profiler():
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def _recorded(fn):
+    """The span records ``fn()`` adds, and the profiler's event names."""
+    before = {record.id for record in SPANS}
+    with _profiler() as prof:
+        fn()
+    return ([record for record in SPANS if record.id not in before],
+            {event.name for event in prof.events()})
+
+
+def _by_name(records):
+    out: dict = {}
+    for record in records:
+        out.setdefault(record.name, []).append(record)
+    return out
+
+
+def test_off_records_nothing_and_enters_no_range(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    assert not torch.autograd._profiler_enabled()
+    before = (len(SPANS), SPANS.dropped)
+    timer = StageTimer()
+    with span("batch.pad", 1, 2, pad_frames=3) as opened:
+        with timer.stage("device", 1, 2):
+            pass
+    assert opened is None
+    assert span("batch.wait") is span("batch.enqueue", frames=2)
+    out = list(stream_graded_batches(BATCHES, lambda x, i: x, batch_size=2,
+                                     device="cpu"))
+    assert sum(o.shape[0] for o in out) == 5
+    assert (len(SPANS), SPANS.dropped) == before
+    assert set(timer.seconds()) == {"device"}
+
+
+def test_names_parents_ids_and_counts():
+    def run():
+        with span("device", 7):
+            with span("batch.enqueue", batch=3, frames=4):
+                with span("grade.phase1"):
+                    pass
+            with span("batch.wait", 7, 5):
+                pass
+
+    records, names = _recorded(run)
+    by = {record.name: record for record in records}
+    assert set(by) == {"device", "batch.enqueue", "grade.phase1",
+                       "batch.wait"}
+    assert {"vrgdg." + name for name in by} <= names
+    device, enqueue = by["device"], by["batch.enqueue"]
+    assert device.parent is None and (device.stream, device.batch) == (7, None)
+    assert enqueue.parent == device.id and enqueue.counts == {"frames": 4}
+    assert (enqueue.stream, enqueue.batch) == (7, 3)
+    phase = by["grade.phase1"]
+    assert phase.parent == enqueue.id and (phase.stream, phase.batch) == (7, 3)
+    assert phase.counts == {}
+    assert by["batch.wait"].parent == device.id
+    assert (by["batch.wait"].stream, by["batch.wait"].batch) == (7, 5)
+    for record in records:
+        assert record.start_ns <= record.end_ns
+    assert device.start_ns <= enqueue.start_ns <= phase.start_ns
+    assert phase.end_ns <= enqueue.end_ns <= device.end_ns
+
+
+def test_span_open_across_a_yield_keeps_the_stack_straight():
+    def stream():
+        with span("encode", 1):
+            yield 1
+        with span("decode", 1):
+            yield 2
+
+    def run():
+        items = stream()
+        assert next(items) == 1                 # "encode" stays open
+        with span("sink", 2):                   # opened inside "encode"
+            assert next(items) == 2             # "encode" closes first,
+            with span("inner", 2):              # "decode" stays open
+                pass
+        for _ in items:
+            pass
+        with span("after"):
+            pass
+
+    records, _ = _recorded(run)
+    by = {record.name: record for record in records}
+    assert by["sink"].parent == by["encode"].id
+    assert by["decode"].parent == by["sink"].id     # not the closed "encode"
+    assert by["inner"].parent == by["decode"].id
+    assert by["after"].parent is None
+    assert profiling._open.stack == []
+
+
+def _fused_effect():
+    lut = build_palette_lut("#0b1d51, #1f6aa5, #f3d27a", 9)
+    reference = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (1, 8, 10, 3)).astype(np.float32))
+    ref_stats = lab_statistics(reference)
+    config = grade_config(lut=lut, lut_strength=8, ref_stats=ref_stats,
+                          match_strength=0.7, sharpen_strength=1.5,
+                          grain_intensity=0.05, seed=42, fused_mode="fused")
+    return grade_effect(config, "cpu", lut=lut, ref_stats=ref_stats)
+
+
+def test_grade_stream_counts_pad_and_enqueued_frames():
+    effect = _fused_effect()
+    timer = StageTimer()
+    out: list = []
+    records, names = _recorded(lambda: out.extend(stream_graded_batches(
+        BATCHES, effect, batch_size=2, device="cpu", timer=timer)))
+    assert sum(o.shape[0] for o in out) == 5
+    by = _by_name(records)
+    assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
+    assert by["batch.pad"][0].batch == 2
+    enqueue = by["batch.enqueue"]
+    assert [r.batch for r in enqueue] == [0, 1, 2]
+    assert sum(r.counts["frames"] for r in enqueue) == 6
+    assert sum(r.counts["frames"] for r in enqueue) - sum(
+        r.counts["pad_frames"] for r in by["batch.pad"]) == 5
+    # the CPU path has no pinned staging and no wait
+    assert "batch.stage" not in by and "batch.wait" not in by
+    assert len({r.stream for r in records}) == 1
+    devices = {r.id for r in by["device"]}
+    assert all(r.parent in devices for r in enqueue + by["batch.pad"])
+    enqueue_ids = {r.id: r.batch for r in enqueue}
+    for name in ("grade.phase1", "grade.stats", "grade.phase2"):
+        assert [enqueue_ids[r.parent] for r in by[name]] == [0, 1, 2]
+        assert "vrgdg." + name in names
+    assert set(timer.seconds()) == {"decode", "device", "encode"}
+
+
+def test_two_streams_get_their_own_numbers():
+    def run():
+        for _ in range(2):
+            list(stream_graded_batches(BATCHES[:1], lambda x, i: x,
+                                       batch_size=2, device="cpu"))
+
+    records, _ = _recorded(run)
+    streams = [r.stream for r in records if r.name == "batch.enqueue"]
+    assert len(streams) == 2 and streams[0] != streams[1]
+
+
+def test_enhance_batches_records_an_enqueue_a_batch():
+    settings = EnhancerSettings.normalize({
+        "upscale_resolution": "2k", "sharpen_strength": 1.0,
+        "grain_enabled": True, "grain_intensity": 0.05, "seed": 42})
+    written: list = []
+    timer = StageTimer()
+    records, _ = _recorded(lambda: enhance_batches(
+        BATCHES, settings, 18, 30, device="cpu", batch_size=2,
+        write=written.append, timer=timer))
+    assert [w.shape[0] for w in written] == [2, 2, 1]
+    by = _by_name(records)
+    enqueue = by["batch.enqueue"]
+    assert [r.batch for r in enqueue] == [0, 1, 2]
+    assert [r.counts for r in enqueue] == [{"frames": 2}] * 3
+    assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
+    assert [r.batch for r in by["batch.wait"]] == [0, 1, 2]
+    assert len({r.stream for r in enqueue + by["batch.wait"]}) == 1
+    enqueue_ids = {r.id for r in enqueue}
+    for name in ("enhance.resample", "enhance.sharpen", "enhance.grain"):
+        assert len(by[name]) == 3
+        assert all(r.parent in enqueue_ids for r in by[name])
+    assert set(timer.seconds()) == {"decode", "device", "encode"}
+
+
+def test_stage_seconds_keeps_its_keys_with_the_profiler_on():
+    def stream(timer):
+        return list(stream_graded_batches(BATCHES, lambda x, i: x,
+                                          batch_size=2, device="cpu",
+                                          timer=timer))
+
+    off, on = StageTimer(), StageTimer()
+    stream(off)
+    with _profiler():
+        stream(on)
+    assert set(on.seconds()) == set(off.seconds()) == {
+        "decode", "device", "encode"}
+    assert on.counts() == off.counts()
+
+
+def test_log_drops_the_oldest_at_its_bound_and_counts_them():
+    log = SpanLog(maxlen=3)
+    for index in range(1, 6):
+        log.add(SpanRecord(index, "batch.wait", index, index + 1, None, 1,
+                           index, {}))
+    assert [record.id for record in log] == [3, 4, 5]
+    assert log.dropped == 2
+    assert SPANS.maxlen == profiling.SPAN_LOG_RECORDS == 65_536
+
+
+def test_a_span_records_when_its_block_raises():
+    def run():
+        with pytest.raises(ValueError):
+            with span("batch.pad", 4, 1, pad_frames=1):
+                raise ValueError("inside")
+
+    records, _ = _recorded(run)
+    assert [(r.name, r.stream, r.counts) for r in records] == [
+        ("batch.pad", 4, {"pad_frames": 1})]
+    assert profiling._open.stack == []

@@ -150,7 +150,12 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
 
     ``stats`` (optional) receives ``frames``, ``batches`` and, on CUDA,
     ``device_ms``: the summed CUDA-event time from each batch's upload to
-    the end of its download.
+    the end of its download.  While a profiler records, each batch's
+    ``batch.pad`` (counting ``pad_frames``), ``batch.stage`` (the pinned
+    buffer and the host copy into it), ``batch.enqueue`` (counting the
+    ``frames`` the device runs) and ``batch.wait`` are
+    :func:`~vrgdg_tpu_torch.runtime.profiling.span` s under ``timer``'s
+    ``device`` stage; on the CPU only the pad and the enqueue.
     """
     device = resolve_device(device)
     timer = timer or profiling.StageTimer()
@@ -160,34 +165,47 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
         stats["device_ms"] = 0.0
     depth = max(1, int(dispatch_depth))
     in_flight: deque = deque()
+    stream = profiling.next_stream()
+    span = profiling.span
 
-    def submit(frame_index: int, batch: np.ndarray):
+    def submit(frame_index: int, batch: np.ndarray, index: int):
         real = int(batch.shape[0])
         if real != batch_size and real > 0:
-            batch = np.concatenate(
-                [batch, np.repeat(batch[-1:], batch_size - real, 0)])
-        host = torch.from_numpy(np.ascontiguousarray(batch))
+            with span("batch.pad", stream, index,
+                      pad_frames=batch_size - real):
+                batch = np.concatenate(
+                    [batch, np.repeat(batch[-1:], batch_size - real, 0)])
+        frames = int(batch.shape[0])
         if device.type != "cuda":
+            with span("batch.enqueue", stream, index, frames=frames):
+                host = torch.from_numpy(np.ascontiguousarray(batch))
+                out = video_io.quantize_on_device(effect(
+                    video_io.dequantize_on_device(host.to(device)),
+                    frame_index))
+            return out, real, None, index
+        with span("batch.stage", stream, index):
+            host = torch.from_numpy(np.ascontiguousarray(batch))
+            pinned = torch.empty(host.shape, dtype=torch.uint8,
+                                 pin_memory=True)
+            pinned.copy_(host)
+        with span("batch.enqueue", stream, index, frames=frames):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            on_device = pinned.to(device, non_blocking=True)
             out = video_io.quantize_on_device(effect(
-                video_io.dequantize_on_device(host.to(device)), frame_index))
-            return out, real, None
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        pinned = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
-        pinned.copy_(host)
-        start.record()
-        on_device = pinned.to(device, non_blocking=True)
-        out = video_io.quantize_on_device(effect(
-            video_io.dequantize_on_device(on_device), frame_index))
-        host_out = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
-        host_out.copy_(out, non_blocking=True)
-        end.record()
-        return host_out, real, (start, end)
+                video_io.dequantize_on_device(on_device), frame_index))
+            host_out = torch.empty(out.shape, dtype=torch.uint8,
+                                   pin_memory=True)
+            host_out.copy_(out, non_blocking=True)
+            end.record()
+        return host_out, real, (start, end), index
 
     def force(item) -> np.ndarray:
-        out, real, events = item
+        out, real, events, index = item
         if events is not None:
-            events[1].synchronize()
+            with span("batch.wait", stream, index):
+                events[1].synchronize()
             stats["device_ms"] += events[0].elapsed_time(events[1])
         result = out.cpu().numpy()[:real]
         stats["frames"] += result.shape[0]
@@ -195,23 +213,25 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
         return result
 
     iterator = iter(batches)
+    submitted = 0
     while True:
-        with timer.stage("decode"):
+        with timer.stage("decode", stream):
             item = next(iterator, None)
         if item is None:
             break
         frame_index, batch = item
-        with timer.stage("device"):
-            in_flight.append(submit(int(frame_index), batch))
+        with timer.stage("device", stream):
+            in_flight.append(submit(int(frame_index), batch, submitted))
+            submitted += 1
             if len(in_flight) < depth:
                 continue
             out = force(in_flight.popleft())
-        with timer.stage("encode"):
+        with timer.stage("encode", stream):
             yield out
     while in_flight:
-        with timer.stage("device"):
+        with timer.stage("device", stream):
             out = force(in_flight.popleft())
-        with timer.stage("encode"):
+        with timer.stage("encode", stream):
             yield out
 
 

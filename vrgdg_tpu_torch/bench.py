@@ -31,25 +31,15 @@ runs.  Each config reports:
 - ``device_ms_per_frame`` (median, with min and max): the CUDA events
   around the chain.  They bracket the idle gaps too, so where the host's
   enqueue sets the pace they read about the wall time;
-- ``busy_ms_per_frame`` and ``busy_share``: the device's kernel and copy
-  time from ``torch.profiler`` over one more chain of the same steps
-  (the carry smooths as it is regraded, which speeds the LUT gather, so
-  a shorter window would not match), and its share of the wall time:
-  how far the host holds the card back;
 - ``launches``: the port's CUDA kernels the config launched
   (``kernels/build.LAUNCHES``); a config whose mode runs a kernel and
   counts no launch of it fails the run.
 
-Baselines:
-
-- ``oracle_cpu_fps``: the reference nodes' math in float32 torch on the
-  host's CPU, one 4K frame (:func:`bench_oracle_cpu`, kept as in
-  ``bench.py``);
-- ``card_floor_fps``: the fused 4K x 2 stack's HBM bytes
-  (:func:`fused_stack_bytes`) at this run's measured elementwise
-  bandwidth.  ``pct_of_card_floor`` is the headline's share of it.  It
-  replaces ``bench.py``'s ``chip_floor_fps`` and ``a100_estimate``, models
-  of other hardware that are not ported.
+Baseline: ``oracle_cpu_fps``, the reference nodes' math in float32 torch
+on the host's CPU, one 4K frame (:func:`bench_oracle_cpu`, kept as in
+``bench.py``).  ``bench.py``'s ``chip_floor_fps`` and ``a100_estimate``,
+models of other hardware, are not ported; the benchmark's rooflines
+(``perfbench``) bound the streamed grade on this card.
 
 Per-config detail goes to stderr; stdout gets ONE JSON line.  Without a
 card the bench says why and exits 1: it has no CPU fallback.
@@ -134,14 +124,12 @@ def card_line() -> str:
 @dataclass(frozen=True)
 class ChainTime:
     """Per-step times of a chain: the median wall seconds (host clock to
-    the final ``.item()``), the median, min and max CUDA-event ms, and the
-    device's busy ms (``None`` where the profiler saw no device time)."""
+    the final ``.item()``) and the median, min and max CUDA-event ms."""
 
     wall_s: float
     device_ms: float
     device_ms_min: float
     device_ms_max: float
-    busy_ms: float | None
 
 
 def _chain(step_fn, x0: torch.Tensor, steps: int) -> torch.Tensor:
@@ -163,31 +151,10 @@ def _fetch(out: torch.Tensor, x0: torch.Tensor) -> float:
     return value
 
 
-def _busy_ms(step_fn, x0: torch.Tensor, steps: int) -> float | None:
-    """Device time (kernels and copies) a step, from ``torch.profiler``
-    over one chain of ``steps``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        _fetch(_chain(step_fn, x0, steps), x0)
-    total_us = 0.0
-    for event in prof.key_averages():
-        # device-side events only: the CPU ops that launched them report
-        # the same device time again
-        if str(event.device_type).endswith("CUDA"):
-            device_us = getattr(event, "self_device_time_total", None)
-            if device_us is None:
-                device_us = getattr(event, "self_cuda_time_total", 0.0)
-            total_us += device_us
-    return total_us / 1e3 / steps if total_us > 0 else None
-
-
 def chained_time(step_fn, x0: torch.Tensor,
                  steps: int = TIMED_STEPS) -> ChainTime:
     """Time ``steps`` dependent applications of ``step_fn`` on ``x0``'s
-    card: one warm-up chain, then :data:`TIMED_CHAINS` timed ones, then
-    one profiled for the busy time."""
+    card: one warm-up chain, then :data:`TIMED_CHAINS` timed ones."""
     _card(x0.device)
     _fetch(_chain(step_fn, x0, steps), x0)
     walls, device_ms = [], []
@@ -206,8 +173,7 @@ def chained_time(step_fn, x0: torch.Tensor,
         wall_s=float(np.median(walls)) / steps,
         device_ms=float(np.median(device_ms)) / steps,
         device_ms_min=min(device_ms) / steps,
-        device_ms_max=max(device_ms) / steps,
-        busy_ms=_busy_ms(step_fn, x0, steps))
+        device_ms_max=max(device_ms) / steps)
 
 
 def call_overhead(device="cuda") -> float:
@@ -471,32 +437,11 @@ def bench_oracle_cpu():
     return 1.0 / (time.perf_counter() - start)
 
 
-def fused_stack_bytes(batch: int, height: int, width: int,
-                      lut_size: int = LUT_SIZE) -> int:
-    """HBM bytes of the fused stack, counted as ``chip_smoke.py``'s
-    kernel bounds count ``grade_phase1`` plus ``grade_phase2``: each input
-    read once, each output written once.  Phase 1 reads the float32 frames
-    (12 bytes a pixel) and the ``(N^3, 24)`` float32 bundle and writes LAB
-    (12); phase 2 reads LAB and writes RGB (24): 48 bytes a pixel plus the
-    bundle.  The per-chunk partials and per-frame coefficients (about 0.1
-    MB at 4K x 2) are left out."""
-    return 48 * batch * height * width + lut_size ** 3 * 24 * 4
-
-
-def card_floor_fps(bw_gbps: float) -> float:
-    """The fused 4K x 2 stack's floor on this card: its bytes
-    (:func:`fused_stack_bytes`) at the measured elementwise bandwidth."""
-    batch, height, width = HEADLINE_SHAPE
-    seconds = fused_stack_bytes(batch, height, width) / (bw_gbps * 1e9)
-    return batch / seconds
-
-
 def _launch_counts() -> dict:
     return {name: count for name, count in build.LAUNCHES.items() if count}
 
 
 def _result(timing: ChainTime, batch: int, mode: str, launches: dict) -> dict:
-    busy = timing.busy_ms
     return {
         "fps": batch / timing.wall_s,
         "batch": batch,
@@ -505,8 +450,6 @@ def _result(timing: ChainTime, batch: int, mode: str, launches: dict) -> dict:
         "device_ms_per_frame": timing.device_ms / batch,
         "device_ms_per_frame_min": timing.device_ms_min / batch,
         "device_ms_per_frame_max": timing.device_ms_max / batch,
-        "busy_ms_per_frame": None if busy is None else busy / batch,
-        "busy_share": None if busy is None else busy / (timing.wall_s * 1e3),
         "launches": launches,
     }
 
@@ -547,10 +490,8 @@ def _enhance(device, steps: int) -> dict:
 
 
 def _say(name: str, result: dict) -> None:
-    busy = result["busy_share"]
     log(f"[bench] {name}: {result['fps']:.2f} fps (batch {result['batch']}) "
         f"device {result['device_ms_per_frame']:.4f} ms/frame "
-        f"busy_share {'not measured' if busy is None else f'{busy:.4f}'} "
         f"mode={result['mode']} launches={result['launches']}")
 
 
@@ -589,7 +530,6 @@ def run(device="cuda", steps: int = TIMED_STEPS, oracle: bool = True) -> dict:
     _say("enhance_step_1080p_to_4k", detail["enhance_step_1080p_to_4k"])
 
     oracle_fps = bench_oracle_cpu() if oracle else None
-    floor_fps = card_floor_fps(probes["elementwise_gbps"])
     # headline = the faster implementation of the full stack
     fused = detail["fused_4k"]["fps"]
     headline_mode = detail["fused_4k"]["mode"]
@@ -597,8 +537,7 @@ def run(device="cuda", steps: int = TIMED_STEPS, oracle: bool = True) -> dict:
         fused = detail["fused_4k_pallas2"]["fps"]
         headline_mode = detail["fused_4k_pallas2"]["mode"]
     log(f"[bench] oracle_cpu="
-        f"{'not run' if oracle_fps is None else f'{oracle_fps:.3f} fps'}  "
-        f"card_floor={floor_fps:.1f} fps ({fused / floor_fps:.1%} achieved)")
+        f"{'not run' if oracle_fps is None else f'{oracle_fps:.3f} fps'}")
     return {
         "metric": "4K frames/sec on one card, fused "
                   "grain+LUT+colormatch+sharpen",
@@ -607,8 +546,6 @@ def run(device="cuda", steps: int = TIMED_STEPS, oracle: bool = True) -> dict:
         "vs_baseline": None if oracle_fps is None else fused / oracle_fps,
         "baseline": "torch-f32 reference math on host CPU, 1 thread-pool",
         "oracle_cpu_fps": oracle_fps,
-        "card_floor_fps": floor_fps,
-        "pct_of_card_floor": fused / floor_fps,
         "backend": "cuda",
         "device": {"name": kind, "nvidia_smi": card},
         "call_overhead_ms": rtt_ms,

@@ -64,7 +64,7 @@ from ..parallel.distributed import local_devices
 from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, make_mesh, pad_to_multiple
 from ..parallel.spatial import HeightShards, place, row_starts
 from ..runtime import video_io
-from ..runtime.profiling import StageTimer
+from ..runtime.profiling import StageTimer, next_stream, span
 from . import manifest as mf
 
 _DEFAULT_ROOT = os.environ.get(
@@ -103,18 +103,22 @@ def _enhance_step(frames: torch.Tensor, settings: EnhancerSettings,
                   out_height: int, out_width: int,
                   frame_start: int) -> torch.Tensor:
     """Resize (lanczos4) -> unsharp -> seeded grain on ``frames``' device."""
-    out = torch.clamp(resample(frames, out_height, out_width, "lanczos4"),
-                      0.0, 1.0)
+    with span("enhance.resample"):
+        out = torch.clamp(resample(frames, out_height, out_width,
+                                   "lanczos4"), 0.0, 1.0)
     if settings.sharpen_enabled and settings.sharpen_strength > 0:
         # use_accelerator maps to the reference's use_gpu border convention
         # (zero-padded avg_pool on GPU, edge-replicate on CPU) so outputs
         # are comparable for equal settings.
         border = "zero" if settings.use_accelerator else "edge"
-        out = unsharp(out, settings.sharpen_strength, border)
+        with span("enhance.sharpen"):
+            out = unsharp(out, settings.sharpen_strength, border)
     if settings.grain_enabled and settings.grain_intensity > 0:
-        out = film_grain_kernel(out.contiguous(), settings.grain_intensity,
-                                settings.saturation_mix, settings.seed,
-                                frame_start=frame_start)
+        with span("enhance.grain"):
+            out = film_grain_kernel(out.contiguous(),
+                                    settings.grain_intensity,
+                                    settings.saturation_mix, settings.seed,
+                                    frame_start=frame_start)
     return out
 
 
@@ -287,20 +291,26 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
         return out.map(lambda tile, rows: finish(tile))
 
     if mesh is not None:
-        return _submit_on_mesh(host, count, step, spatial_step, mesh)
+        with span("batch.enqueue", frames=count):
+            return _submit_on_mesh(host, count, step, spatial_step, mesh)
     device = resolve_device(device)
     if device.type != "cuda":
-        return PendingBatch(step(host.to(device)).cpu(), count)
+        with span("batch.enqueue", frames=count):
+            return PendingBatch(step(host.to(device)).cpu(), count)
     with torch.cuda.device(device):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        pinned.copy_(host)
-        start.record()
-        out = step(pinned.to(device, non_blocking=True))
-        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host_out.copy_(out, non_blocking=True)
-        end.record()
+        with span("batch.stage"):
+            pinned = torch.empty(host.shape, dtype=host.dtype,
+                                 pin_memory=True)
+            pinned.copy_(host)
+        with span("batch.enqueue", frames=count):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(pinned.to(device, non_blocking=True))
+            host_out = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+            host_out.copy_(out, non_blocking=True)
+            end.record()
     return PendingBatch(host_out, count, [(start, end)])
 
 
@@ -416,10 +426,11 @@ def _force_entry(in_flight: deque, settings, out_h: int, out_w: int, device,
 
     A device OOM that surfaces here is handled like one at submit time:
     the retained host copy goes through the synchronous bisection."""
-    (pending, padded, chunk_n, start) = in_flight.popleft()
+    (pending, padded, chunk_n, start, ids) = in_flight.popleft()
     with timer.stage("device"):
         try:
-            enhanced = pending.result()
+            with span("batch.wait", *ids):
+                enhanced = pending.result()
             ok_batch = padded.shape[0]
             stats["device_ms"] += pending.device_ms()
         except RuntimeError as exc:
@@ -467,6 +478,7 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
     smallest_batch = max(1, int(batch_size))
     frames_done = 0
     in_flight: deque = deque()
+    stream, submitted = next_stream(), 0
 
     def force() -> None:
         nonlocal smallest_batch
@@ -476,7 +488,7 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
 
     iterator = iter(batches)
     while True:
-        with timer.stage("decode"):
+        with timer.stage("decode", stream):
             item = next(iterator, None)
         if item is None:
             break
@@ -489,18 +501,22 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
             chunk = frames[offset:offset + smallest_batch]
             chunk_n = chunk.shape[0]
             padded = chunk
+            ids = (stream, submitted)
+            submitted += 1
             if chunk_n < smallest_batch:
-                filler = np.repeat(chunk[-1:], smallest_batch - chunk_n,
-                                   axis=0)
-                padded = np.concatenate([chunk, filler], axis=0)
+                with span("batch.pad", *ids,
+                          pad_frames=smallest_batch - chunk_n):
+                    filler = np.repeat(chunk[-1:], smallest_batch - chunk_n,
+                                       axis=0)
+                    padded = np.concatenate([chunk, filler], axis=0)
             submit_oom = False
-            with timer.stage("device"):
+            with timer.stage("device", *ids):
                 try:
                     pending = submit_effects_batch(
                         padded, settings, out_h, out_w, frame_index + offset,
                         device=device, mesh=mesh, as_uint8=True)
                     in_flight.append((pending, padded, chunk_n,
-                                      frame_index + offset))
+                                      frame_index + offset, ids))
                 except RuntimeError as exc:
                     if not _is_oom(exc):
                         raise
@@ -510,7 +526,7 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
                 # their own stages, and StageTimer is a plain accumulator.
                 while in_flight:
                     force()
-                with timer.stage("device"):
+                with timer.stage("device", *ids):
                     enhanced, ok_batch = process_with_retry(
                         padded, settings, out_h, out_w, frame_index + offset,
                         device=device, mesh=mesh, as_uint8=True)

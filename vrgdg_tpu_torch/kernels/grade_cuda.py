@@ -72,6 +72,7 @@ from ..ops.adjust import apply_adjust
 from ..ops.grain import grain_field
 from ..ops.lut import _trilerp
 from ..ops.sharpen import unsharp
+from ..runtime.profiling import span
 from . import build
 from .build import LAUNCHES, reset_launch_counts  # noqa: F401 (re-exported)
 
@@ -490,27 +491,32 @@ def _post_gather(phases, frames, bundle, domain_min, domain_max, ref_mean,
              "the fused grade needs (B, H, W, 3) frames")
     src = frames.to(torch.float32).contiguous()
     domain = lut_domain(domain_min, domain_max)
-    if layout == "plane":
-        src_planes = src.permute(3, 0, 1, 2).contiguous()
-        # the corner planes are a temporary: freed once phase 1 returns
-        lab, partials = first_planes(
-            src_planes, corner_planes(src_planes, bundle, domain), domain,
-            blend=blend, lut_size=_lut_size(bundle))
-    else:
-        lab, partials = first(src, bundle, domain, blend=blend,
-                              adjust=adjust)
-        if layout == "rowmajor":
-            lab = lab.permute(0, 3, 1, 2).contiguous()
-    coeff = stats_barrier(partials, src.shape[1] * src.shape[2], ref_mean,
-                          ref_std, match_strength)
+    with span("grade.phase1"):
+        if layout == "plane":
+            src_planes = src.permute(3, 0, 1, 2).contiguous()
+            # the corner planes are a temporary: freed once phase 1 returns
+            lab, partials = first_planes(
+                src_planes, corner_planes(src_planes, bundle, domain),
+                domain, blend=blend, lut_size=_lut_size(bundle))
+        else:
+            lab, partials = first(src, bundle, domain, blend=blend,
+                                  adjust=adjust)
+            if layout == "rowmajor":
+                lab = lab.permute(0, 3, 1, 2).contiguous()
+    with span("grade.stats"):
+        coeff = stats_barrier(partials, src.shape[1] * src.shape[2],
+                              ref_mean, ref_std, match_strength)
     kwargs = dict(sharpen_strength=sharpen_strength,
                   grain_intensity=grain_intensity,
                   saturation_mix=saturation_mix, seed_base=seed_plus_start)
-    if layout == "flat":
-        out = second(lab, coeff, **kwargs)
-        return out.permute(0, 3, 1, 2).contiguous() if emit == "planes" else out
-    out = second_planes(lab, coeff, **kwargs)
-    return out if emit == "planes" else out.permute(0, 2, 3, 1).contiguous()
+    with span("grade.phase2"):
+        if layout == "flat":
+            out = second(lab, coeff, **kwargs)
+            return (out.permute(0, 3, 1, 2).contiguous() if emit == "planes"
+                    else out)
+        out = second_planes(lab, coeff, **kwargs)
+        return (out if emit == "planes"
+                else out.permute(0, 2, 3, 1).contiguous())
 
 
 def fused_post_gather(frames, bundle, domain_min, domain_max, ref_mean,

@@ -7,23 +7,42 @@ Counterpart of :mod:`vrgdg_tpu.runtime.profiling`:
   CUDA when a card is present) and a Chrome trace lands in
   ``$VRGDG_TPU_TRACE/<label>/trace.json``.  Every applier wraps its
   device loop in it.
+- :func:`span`: a named range around one piece of a batch stream's work
+  (``batch.pad``, ``batch.stage``, ``batch.enqueue``, ``batch.wait``) and
+  inside the enqueue (``grade.phase1`` / ``grade.stats`` /
+  ``grade.phase2``, ``enhance.resample`` / ``enhance.sharpen`` /
+  ``enhance.grain``).  A span records only while a ``torch.profiler``
+  records in this process (``maybe_trace`` or any other); otherwise it is
+  one check and a shared no-op context.  While one records, a span opens a
+  ``record_function`` range named ``vrgdg.<name>``, which lands in the
+  trace on the clock of the device's events, and appends a
+  :class:`SpanRecord` (``perf_counter_ns`` times, the enclosing span, the
+  stream and batch it belongs to, its counts) to :data:`SPANS`.
 - :class:`StageTimer`: named wall-clock accumulators behind the appliers'
-  ``stage_seconds`` breakdown (decode / device / encode).
+  ``stage_seconds`` breakdown (decode / device / encode); each stage is
+  also a span, so the batch spans nest under ``device``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
+from collections import deque
+from dataclasses import dataclass
+
+import torch
 
 TRACE_ENV = "VRGDG_TPU_TRACE"
+SPAN_PREFIX = "vrgdg."
+SPAN_LOG_RECORDS = 65_536
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the block; writes ``log_dir/trace.json``."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -48,8 +67,107 @@ def maybe_trace(label: str = ""):
         yield target
 
 
+@dataclass(frozen=True)
+class SpanRecord:
+    """One closed span.  ``parent`` is the ``id`` of the span that enclosed
+    it on its thread when it opened; ``stream`` numbers a call of a batch
+    stream and ``batch`` a batch in it (both taken from the enclosing span
+    when not given); ``counts`` are the integers given to :func:`span`."""
+
+    id: int
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int | None
+    stream: int | None
+    batch: int | None
+    counts: dict
+
+
+class SpanLog(deque):
+    """A bounded log of :class:`SpanRecord`: at its bound the oldest record
+    goes, and ``dropped`` counts those that went."""
+
+    def __init__(self, maxlen: int = SPAN_LOG_RECORDS):
+        super().__init__(maxlen=maxlen)
+        self.dropped = 0
+        self._lock = threading.Lock()
+
+    def add(self, record: SpanRecord) -> None:
+        with self._lock:
+            if len(self) == self.maxlen:
+                self.dropped += 1
+            self.append(record)
+
+
+SPANS = SpanLog()
+_ids = itertools.count(1)
+_streams = itertools.count(1)
+_open = threading.local()       # .stack: the thread's open spans
+_OFF = contextlib.nullcontext()
+
+
+def next_stream() -> int:
+    """A fresh ``stream`` number for one call of a batch stream."""
+    return next(_streams)
+
+
+class _Span:
+    __slots__ = ("name", "stream", "batch", "counts", "id", "parent",
+                 "start_ns", "_range", "_stack")
+
+    def __init__(self, name, stream, batch, counts):
+        self.name, self.stream, self.batch = name, stream, batch
+        self.counts = counts
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        outer = stack[-1] if stack else None
+        self.parent = None if outer is None else outer.id
+        if outer is not None:
+            if self.stream is None:
+                self.stream = outer.stream
+            if self.batch is None:
+                self.batch = outer.batch
+        self.id = next(_ids)
+        self._stack = stack
+        stack.append(self)
+        self._range = torch.autograd.profiler.record_function(
+            SPAN_PREFIX + self.name)
+        self._range.__enter__()
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.perf_counter_ns()
+        self._range.__exit__(*exc)
+        # a span held open across a generator's yield can close after spans
+        # its consumer opened later: take out this one, not the newest
+        stack = self._stack
+        for index in range(len(stack) - 1, -1, -1):
+            if stack[index] is self:
+                del stack[index]
+                break
+        SPANS.add(SpanRecord(self.id, self.name, self.start_ns, end_ns,
+                             self.parent, self.stream, self.batch,
+                             self.counts))
+        return False
+
+
+def span(name: str, stream: int | None = None, batch: int | None = None,
+         **counts: int):
+    """A context that records ``name`` while a profiler records, and does
+    nothing else otherwise (see the module's docstring)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, stream, batch, counts)
+
+
 class StageTimer:
-    """Named wall-clock accumulators for a stage breakdown.
+    """Named wall-clock accumulators for a stage breakdown; each stage is
+    also a :func:`span` of the same name.
 
     >>> timer = StageTimer()
     >>> with timer.stage("decode"): ...
@@ -61,10 +179,12 @@ class StageTimer:
         self._counts: dict[str, int] = {}
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, stream: int | None = None,
+              batch: int | None = None):
         start = time.perf_counter()
         try:
-            yield
+            with span(name, stream, batch):
+                yield
         finally:
             elapsed = time.perf_counter() - start
             self._totals[name] = self._totals.get(name, 0.0) + elapsed

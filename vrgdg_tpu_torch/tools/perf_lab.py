@@ -142,15 +142,12 @@ def _line(label: str, timing: bench.ChainTime, batch: int, launches: dict,
     result = {"ms_per_batch": timing.wall_s * 1e3,
               "ms_per_frame": timing.wall_s * 1e3 / batch,
               "fps": batch / timing.wall_s,
-              "device_ms_per_batch": timing.device_ms,
-              "busy_ms_per_batch": timing.busy_ms, "launches": launches}
-    busy = ("not measured" if timing.busy_ms is None
-            else f"{timing.busy_ms:.4f} ms/batch")
+              "device_ms_per_batch": timing.device_ms, "launches": launches}
     print(f"[{label}] batch={batch}: {result['ms_per_batch']:.4f} ms/batch, "
           f"{result['ms_per_frame']:.4f} ms/frame, {result['fps']:.2f} fps, "
           f"device {timing.device_ms:.4f} ms/batch "
           f"(min {timing.device_ms_min:.4f}, max {timing.device_ms_max:.4f}), "
-          f"busy {busy}, launches={launches} card='{card}'", flush=True)
+          f"launches={launches} card='{card}'", flush=True)
     return result
 
 
