@@ -380,9 +380,11 @@ def test_enhance_batch_split_is_bit_identical_on_card():
 @pytest.mark.cuda
 def test_batch_streams_record_their_spans_on_the_card():
     """Under ``torch.profiler`` (CPU and CUDA) both streams record each
-    batch's pinned staging, enqueue and wait, the grade its tail pad, the
-    fused phases and the enhance step's parts under the enqueue, and the
-    ``vrgdg.*`` ranges land in the trace beside the device's work."""
+    batch's pinned staging, enqueue and wait, the fused phases and the
+    enhance step's parts under the enqueue, and the ``vrgdg.*`` ranges
+    land in the trace beside the device's work.  The grade runs its tail
+    batch at its real length (no pad; the tail's enqueue counts the
+    ``short_frames`` it lacks); the enhancer pads its tail."""
     from torch.profiler import ProfilerActivity, profile
 
     from vrgdg_tpu_torch.runtime.profiling import SPANS
@@ -412,8 +414,15 @@ def test_batch_streams_record_their_spans_on_the_card():
             by.setdefault(record.name, []).append(record)
         for name in ("batch.stage", "batch.enqueue", "batch.wait"):
             assert [r.batch for r in by[name]] == [0, 1, 2], name
-        assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
-        assert sum(r.counts["frames"] for r in by["batch.enqueue"]) == 6
+        enqueued = [r.counts for r in by["batch.enqueue"]]
+        if "grade.phase1" in by:
+            assert "batch.pad" not in by
+            assert enqueued == [{"frames": 2}, {"frames": 2},
+                                {"frames": 1, "short_frames": 1}]
+            assert sum(c["frames"] for c in enqueued) == 5
+        else:
+            assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
+            assert sum(c["frames"] for c in enqueued) == 6
         enqueues = {r.id for r in by["batch.enqueue"]}
         children = (("grade.phase1", "grade.stats", "grade.phase2")
                     if "grade.phase1" in by else
@@ -423,6 +432,40 @@ def test_batch_streams_record_their_spans_on_the_card():
                 r.parent in enqueues for r in by[name]), name
             assert "vrgdg." + name in names
     assert {"vrgdg.batch.stage", "vrgdg.batch.wait"} <= names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,width,batch", [(1080, 1920, 8),
+                                                (2160, 3840, 2)])
+def test_unpadded_tail_batches_match_batch_one_at_full_size(height, width,
+                                                            batch):
+    """Clips of the benchmark's six lengths (each ends in a 1-frame batch)
+    through the fused stack at full size: every frame bit-identical to the
+    same clip streamed one frame a batch, and each fused kernel launched
+    once a batch."""
+    device = _card()
+    config, lut, ref_stats = _config(device)
+    effect = appliers.grade_effect(config, device, lut=lut,
+                                   ref_stats=ref_stats)
+    rng = np.random.default_rng(14)
+    pool = rng.integers(0, 256, (3 * batch, height, width, 3), np.uint8)
+    for count in (33, 49, 81, 97, 121, 241):
+        frames = [pool[i % len(pool)] for i in range(count)]
+        batches = [(start, np.stack(frames[start:start + batch]))
+                   for start in range(0, count, batch)]
+        gc.reset_launch_counts()
+        got = list(appliers.stream_graded_batches(
+            batches, effect, batch_size=batch, device=device))
+        launches = {name: gc.LAUNCHES[name]
+                    for name in ("grade_phase1", "grade_phase2")}
+        assert launches == dict.fromkeys(launches, len(batches)), count
+        assert [g.shape[0] for g in got] == [b.shape[0] for _, b in batches]
+        got = np.concatenate(got)
+        singles = appliers.stream_graded_batches(
+            [(i, frame[None]) for i, frame in enumerate(frames)], effect,
+            batch_size=1, device=device)
+        for i, single in enumerate(singles):
+            assert np.array_equal(got[i], single[0]), (count, i)
 
 
 @pytest.mark.cuda

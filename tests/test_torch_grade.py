@@ -145,8 +145,9 @@ def test_fused_rules(flagship):
 
 
 def test_stream_pads_tail_batches_exactly(flagship):
-    """The applier loop pads a short tail batch and drops the pad frames;
-    every frame equals its single-frame grade, at either dispatch depth."""
+    """The applier loop runs a short tail batch at its real length, with no
+    pad frames; every frame equals its single-frame grade, at either
+    dispatch depth."""
     _, ref_stats = flagship
     lut = tcube.parse_cube(os.path.join(LUTS, "teal_orange.cube"))
     ref_stats = tuple(torch.from_numpy(a) for a in ref_stats)

@@ -7,9 +7,10 @@ on the CPU.
   links, the ``stream`` / ``batch`` numbers taken from the enclosing span,
   the counts; a span held open across a generator's ``yield`` leaves the
   parent stack straight.
-- ``stream_graded_batches`` over a 5-frame clip at batch 2: one
-  ``batch.pad`` of one frame, ``batch.enqueue`` frames summing to 6 (5
-  real), the fused grade's phases under each enqueue.
+- ``stream_graded_batches`` over a 5-frame clip at batch 2: the tail
+  batch runs at its real length (no ``batch.pad``), its ``batch.enqueue``
+  counts the one ``short_frames`` it lacks, ``frames`` sum to 5, the
+  fused grade's phases under each enqueue.
 - ``enhance_batches``: one ``batch.enqueue`` a batch, the step's parts
   under it.
 - ``stage_seconds`` keeps exactly its keys with the profiler on.
@@ -144,25 +145,37 @@ def _fused_effect():
 
 
 def test_grade_stream_counts_pad_and_enqueued_frames():
-    effect = _fused_effect()
+    """The short tail batch runs at its real length, unpadded: its enqueue
+    counts the frames it lacks, and the frames come out as at batch 1."""
+    fused = _fused_effect()
+    lengths: list = []
+
+    def effect(batch, frame_index):
+        lengths.append(int(batch.shape[0]))
+        return fused(batch, frame_index)
+
     timer = StageTimer()
     out: list = []
     records, names = _recorded(lambda: out.extend(stream_graded_batches(
         BATCHES, effect, batch_size=2, device="cpu", timer=timer)))
-    assert sum(o.shape[0] for o in out) == 5
+    assert lengths == [2, 2, 1]
+    assert [o.shape[0] for o in out] == [2, 2, 1]
+    single = list(stream_graded_batches(
+        [(i, CLIP[i:i + 1]) for i in range(5)], fused, batch_size=1,
+        device="cpu"))
+    assert np.array_equal(np.concatenate(out), np.concatenate(single))
     by = _by_name(records)
-    assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
-    assert by["batch.pad"][0].batch == 2
+    assert "batch.pad" not in by
     enqueue = by["batch.enqueue"]
     assert [r.batch for r in enqueue] == [0, 1, 2]
-    assert sum(r.counts["frames"] for r in enqueue) == 6
-    assert sum(r.counts["frames"] for r in enqueue) - sum(
-        r.counts["pad_frames"] for r in by["batch.pad"]) == 5
+    assert [r.counts for r in enqueue] == [
+        {"frames": 2}, {"frames": 2}, {"frames": 1, "short_frames": 1}]
+    assert sum(r.counts["frames"] for r in enqueue) == 5
     # the CPU path has no pinned staging and no wait
     assert "batch.stage" not in by and "batch.wait" not in by
     assert len({r.stream for r in records}) == 1
     devices = {r.id for r in by["device"]}
-    assert all(r.parent in devices for r in enqueue + by["batch.pad"])
+    assert all(r.parent in devices for r in enqueue)
     enqueue_ids = {r.id: r.batch for r in enqueue}
     for name in ("grade.phase1", "grade.stats", "grade.phase2"):
         assert [enqueue_ids[r.parent] for r in by[name]] == [0, 1, 2]

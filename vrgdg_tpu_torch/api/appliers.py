@@ -136,26 +136,27 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
                           timer: profiling.StageTimer | None = None,
                           stats: dict | None = None) -> Iterator[np.ndarray]:
     """Run ``effect`` over ``(first_frame_index, uint8 (B, H, W, 3))`` host
-    batches and yield the uint8 results, in order, real frames only.
+    batches and yield the uint8 results, in order.
 
-    Tail batches are padded back to ``batch_size`` by repeating the last
-    frame, so every batch has one shape; every stage is frame-local
-    (per-frame colour-match statistics, grain keyed on seed + absolute
-    frame index), so the real frames' outputs do not change and the pad
-    frames are sliced off.  Up to ``dispatch_depth`` batches are in
-    flight: on CUDA each batch's upload, kernels and download are queued
-    on the current stream without waiting, through pinned host buffers,
-    and the host waits for a batch only when its result is due, so host
-    decode and encode overlap device work.
+    Each batch runs at its own length: a clip's short tail batch is
+    staged, uploaded, run, quantized and downloaded at its real frame
+    count, with no pad frames.  Nothing here is compiled per shape and
+    every stage is frame-local (per-frame colour-match statistics, grain
+    keyed on seed + absolute frame index), so a frame's output does not
+    depend on the batch it runs in.  Up to ``dispatch_depth`` batches are
+    in flight: on CUDA each batch's upload, kernels and download are
+    queued on the current stream without waiting, through pinned host
+    buffers, and the host waits for a batch only when its result is due,
+    so host decode and encode overlap device work.
 
     ``stats`` (optional) receives ``frames``, ``batches`` and, on CUDA,
     ``device_ms``: the summed CUDA-event time from each batch's upload to
     the end of its download.  While a profiler records, each batch's
-    ``batch.pad`` (counting ``pad_frames``), ``batch.stage`` (the pinned
-    buffer and the host copy into it), ``batch.enqueue`` (counting the
-    ``frames`` the device runs) and ``batch.wait`` are
-    :func:`~vrgdg_tpu_torch.runtime.profiling.span` s under ``timer``'s
-    ``device`` stage; on the CPU only the pad and the enqueue.
+    ``batch.stage`` (the pinned buffer and the host copy into it),
+    ``batch.enqueue`` (counting the ``frames`` the device runs and, on a
+    batch shorter than ``batch_size``, the ``short_frames`` it lacks) and
+    ``batch.wait`` are :func:`~vrgdg_tpu_torch.runtime.profiling.span` s
+    under ``timer``'s ``device`` stage; on the CPU only the enqueue.
     """
     device = resolve_device(device)
     timer = timer or profiling.StageTimer()
@@ -169,26 +170,23 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
     span = profiling.span
 
     def submit(frame_index: int, batch: np.ndarray, index: int):
-        real = int(batch.shape[0])
-        if real != batch_size and real > 0:
-            with span("batch.pad", stream, index,
-                      pad_frames=batch_size - real):
-                batch = np.concatenate(
-                    [batch, np.repeat(batch[-1:], batch_size - real, 0)])
         frames = int(batch.shape[0])
+        counts = {"frames": frames}
+        if 0 < frames < batch_size:
+            counts["short_frames"] = batch_size - frames
         if device.type != "cuda":
-            with span("batch.enqueue", stream, index, frames=frames):
+            with span("batch.enqueue", stream, index, **counts):
                 host = torch.from_numpy(np.ascontiguousarray(batch))
                 out = video_io.quantize_on_device(effect(
                     video_io.dequantize_on_device(host.to(device)),
                     frame_index))
-            return out, real, None, index
+            return out, None, index
         with span("batch.stage", stream, index):
             host = torch.from_numpy(np.ascontiguousarray(batch))
             pinned = torch.empty(host.shape, dtype=torch.uint8,
                                  pin_memory=True)
             pinned.copy_(host)
-        with span("batch.enqueue", stream, index, frames=frames):
+        with span("batch.enqueue", stream, index, **counts):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -199,15 +197,15 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
                                    pin_memory=True)
             host_out.copy_(out, non_blocking=True)
             end.record()
-        return host_out, real, (start, end), index
+        return host_out, (start, end), index
 
     def force(item) -> np.ndarray:
-        out, real, events, index = item
+        out, events, index = item
         if events is not None:
             with span("batch.wait", stream, index):
                 events[1].synchronize()
             stats["device_ms"] += events[0].elapsed_time(events[1])
-        result = out.cpu().numpy()[:real]
+        result = out.cpu().numpy()
         stats["frames"] += result.shape[0]
         stats["batches"] += 1
         return result
