@@ -690,3 +690,60 @@ def test_bench_runs_small_on_the_card():
         assert configs[name]["launches"]["film_grain"] > 0
     assert set(result["stage_ms_per_4k_frame"]) == set(bench.STAGES)
     assert result["device"]["name"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.cuda
+def test_lut_stream_on_card_matches_cpu_and_times_its_lut_stage():
+    """Apply LUT's stream (``_lut_effect`` through ``stream_graded_batches``
+    at batch 8, depth 2) on a 17-frame 1080p clip: from the card's
+    dequantized frames the CPU gives the card's bits (the eager LUT's
+    lerps are float64 sums rounded once, each its own op), and the CPU's
+    own stream is within a level of it.  Under a profiler each batch's
+    ``grade.lut`` span counts its frames and the lattice's 33 and carries
+    CUDA events whose time is positive and no longer than its batch's
+    upload-to-download events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vrgdg_tpu_torch.runtime import video_io
+    from vrgdg_tpu_torch.runtime.profiling import SPANS, device_ms
+
+    device = _card()
+    luts = os.path.join(REPO, "LUTS")
+    clip = np.random.default_rng(19).integers(0, 256, (17, 1080, 1920, 3),
+                                              np.uint8)
+    batches = [(start, clip[start:start + 8]) for start in range(0, 17, 8)]
+
+    def stream(on, parts, stats=None):
+        effect, _ = appliers._lut_effect("teal_orange.cube", 10.0, luts, on)
+        return np.concatenate(list(appliers.stream_graded_batches(
+            parts, effect, batch_size=8, device=on, dispatch_depth=2,
+            stats=stats)))
+
+    want = stream(torch.device("cpu"), batches)
+    got = stream(device, batches)
+    # dequantize divides by 255 on the CPU, while the card multiplies by
+    # the float32 reciprocal (PyTorch's CUDA division by a scalar), which
+    # moves 126 of the 256 levels by an ulp; from the same floats the LUT
+    # and quantize give the CPU's bits
+    cpu = torch.device("cpu")
+    effect, _ = appliers._lut_effect("teal_orange.cube", 10.0, luts, cpu)
+    floats = video_io.dequantize_on_device(torch.from_numpy(clip).to(device))
+    exact = np.concatenate([video_io.quantize_on_device(effect(
+        floats[start:start + 8].cpu(), start)).numpy()
+        for start, _ in batches])
+    assert np.array_equal(got, exact)
+    diff = np.abs(got.astype(np.int16) - want)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+    seen = {record.id for record in SPANS}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for start, batch in batches:
+            stats: dict = {}
+            alone = stream(device, [(start, batch)], stats)
+            assert np.array_equal(alone, got[start:start + len(batch)])
+            records = [r for r in SPANS
+                       if r.id not in seen and r.name == "grade.lut"]
+            seen |= {record.id for record in SPANS}
+            assert len(records) == 1
+            assert records[0].counts == {"frames": len(batch), "lut_size": 33}
+            assert records[0].events is not None
+            assert 0.0 < device_ms(records[0]) <= stats["device_ms"]

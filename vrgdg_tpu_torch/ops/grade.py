@@ -25,6 +25,7 @@ frames' device decides where the work runs; operands are moved there.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -33,6 +34,7 @@ import torch
 from ..core.cube import LutData, corner_bundle
 from ..core.params import (AdjustSettings, ColorMatchParams, GrainParams,
                            LUTParams, SharpenParams)
+from ..runtime.profiling import span
 from .adjust import apply_adjust
 from .color_match import lab_statistics, transfer_lab_statistics
 from .grain import film_grain
@@ -156,7 +158,14 @@ def grade_prepared(frames: torch.Tensor, config: GradeConfig, table, dmin,
                    dmax, ref_mean, ref_std,
                    frame_start: int = 0) -> torch.Tensor:
     """Run the stack on operands already resolved by
-    :func:`prepare_operands` (or :func:`from_reference`)."""
+    :func:`prepare_operands` (or :func:`from_reference`).
+
+    In the eager mode each stage that runs is a
+    :func:`~vrgdg_tpu_torch.runtime.profiling.span` (``grade.lut``,
+    ``grade.adjust``, ``grade.match``, ``grade.sharpen``, ``grade.grain``)
+    counting the batch's ``frames``, and ``grade.lut`` the lattice's
+    ``lut_size``; on a CUDA device each also times the stage with a pair of
+    CUDA events.  They record only while a profiler records."""
     # reject typos loudly: a silent fallback would hand someone measuring
     # the kernels the wrong numbers
     if config.fused_mode not in FUSED_MODES:
@@ -169,27 +178,44 @@ def grade_prepared(frames: torch.Tensor, config: GradeConfig, table, dmin,
         return _run_fused(frames, config, table, dmin, dmax, ref_mean,
                           ref_std, frame_start)
     out = frames
+    count = math.prod(frames.shape[:-3]) if frames.ndim > 3 else 1
+
+    def stage(name, **counts):
+        return span(name, device=frames.device, frames=count, **counts)
+
     if config.lut is not None:
-        fn = apply_lut_bundle if config.lut_mode == "bundle" else apply_lut
-        out = fn(out, table, dmin, dmax, strength=config.lut.strength)
+        bundled = config.lut_mode == "bundle"
+        with stage("grade.lut", lut_size=_lut_size(table, bundled)):
+            fn = apply_lut_bundle if bundled else apply_lut
+            out = fn(out, table, dmin, dmax, strength=config.lut.strength)
     if config.adjust is not None:
-        out = apply_adjust(out, config.adjust)
+        with stage("grade.adjust"):
+            out = apply_adjust(out, config.adjust)
     if config.color_match is not None:
-        out = transfer_lab_statistics(out, ref_mean, ref_std,
-                                      config.color_match.match_strength)
+        with stage("grade.match"):
+            out = transfer_lab_statistics(out, ref_mean, ref_std,
+                                          config.color_match.match_strength)
     if config.sharpen is not None and config.sharpen.strength > 0:
-        fn = _SHARPEN_FNS[config.sharpen.kind]
-        out = fn(out, config.sharpen.strength, config.sharpen.border)
+        with stage("grade.sharpen"):
+            fn = _SHARPEN_FNS[config.sharpen.kind]
+            out = fn(out, config.sharpen.strength, config.sharpen.border)
     if config.grain is not None and config.grain.intensity > 0:
-        if config.grain_mode == "kernel":
-            from ..kernels.grain_cuda import film_grain_kernel as grain_fn
-            out = out.contiguous()   # a grain-only stack passes frames as given
-        else:
-            grain_fn = film_grain
-        out = grain_fn(out, config.grain.intensity,
-                       config.grain.saturation_mix, config.grain.seed,
-                       frame_start=frame_start)
+        with stage("grade.grain"):
+            if config.grain_mode == "kernel":
+                from ..kernels.grain_cuda import film_grain_kernel as grain_fn
+                # a grain-only stack passes frames as given
+                out = out.contiguous()
+            else:
+                grain_fn = film_grain
+            out = grain_fn(out, config.grain.intensity,
+                           config.grain.saturation_mix, config.grain.seed,
+                           frame_start=frame_start)
     return out
+
+
+def _lut_size(table, bundled: bool) -> int:
+    """The lattice's N of a corner bundle ``(N^3, 24)`` or a raw table."""
+    return round(table.shape[0] ** (1.0 / 3.0)) if bundled else table.shape[0]
 
 
 def grade(frames: torch.Tensor, config: GradeConfig, *, lut=None,

@@ -10,14 +10,19 @@ Counterpart of :mod:`vrgdg_tpu.runtime.profiling`:
 - :func:`span`: a named range around one piece of a batch stream's work
   (``batch.pad``, ``batch.stage``, ``batch.enqueue``, ``batch.wait``) and
   inside the enqueue (``grade.phase1`` / ``grade.stats`` /
-  ``grade.phase2``, ``enhance.resample`` / ``enhance.sharpen`` /
-  ``enhance.grain``).  A span records only while a ``torch.profiler``
-  records in this process (``maybe_trace`` or any other); otherwise it is
-  one check and a shared no-op context.  While one records, a span opens a
-  ``record_function`` range named ``vrgdg.<name>``, which lands in the
-  trace on the clock of the device's events, and appends a
-  :class:`SpanRecord` (``perf_counter_ns`` times, the enclosing span, the
-  stream and batch it belongs to, its counts) to :data:`SPANS`.
+  ``grade.phase2``, the eager stages ``grade.lut`` / ``grade.adjust`` /
+  ``grade.match`` / ``grade.sharpen`` / ``grade.grain``,
+  ``enhance.resample`` / ``enhance.sharpen`` / ``enhance.grain``).  A
+  span records only while a ``torch.profiler`` records in this process
+  (``maybe_trace`` or any other); otherwise it is one check and a shared
+  no-op context.  While one records, a span opens a ``record_function``
+  range named ``vrgdg.<name>``, which lands in the trace on the clock of
+  the device's events, and appends a :class:`SpanRecord`
+  (``perf_counter_ns`` times, the enclosing span, the stream and batch it
+  belongs to, its counts) to :data:`SPANS`.  A span given a CUDA
+  ``device`` also records a timing event on that device's current stream
+  as it opens and as it closes; :func:`device_ms` reads the device time
+  between them.
 - :class:`StageTimer`: named wall-clock accumulators behind the appliers'
   ``stage_seconds`` breakdown (decode / device / encode); each stage is
   also a span, so the batch spans nest under ``device``.
@@ -72,7 +77,9 @@ class SpanRecord:
     """One closed span.  ``parent`` is the ``id`` of the span that enclosed
     it on its thread when it opened; ``stream`` numbers a call of a batch
     stream and ``batch`` a batch in it (both taken from the enclosing span
-    when not given); ``counts`` are the integers given to :func:`span`."""
+    when not given); ``counts`` are the integers given to :func:`span`;
+    ``events`` the opening and closing CUDA events of a span given a CUDA
+    ``device``, else ``None``."""
 
     id: int
     name: str
@@ -82,6 +89,7 @@ class SpanRecord:
     stream: int | None
     batch: int | None
     counts: dict
+    events: tuple | None = None
 
 
 class SpanLog(deque):
@@ -114,11 +122,16 @@ def next_stream() -> int:
 
 class _Span:
     __slots__ = ("name", "stream", "batch", "counts", "id", "parent",
-                 "start_ns", "_range", "_stack")
+                 "start_ns", "_range", "_stack", "events", "_cuda")
 
-    def __init__(self, name, stream, batch, counts):
+    def __init__(self, name, stream, batch, counts, device):
         self.name, self.stream, self.batch = name, stream, batch
         self.counts = counts
+        self.events = self._cuda = None
+        if device is not None and device.type == "cuda":
+            self._cuda = torch.cuda.current_stream(device)
+            self.events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
 
     def __enter__(self):
         stack = getattr(_open, "stack", None)
@@ -137,11 +150,15 @@ class _Span:
         self._range = torch.autograd.profiler.record_function(
             SPAN_PREFIX + self.name)
         self._range.__enter__()
+        if self.events is not None:
+            self.events[0].record(self._cuda)
         self.start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         end_ns = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record(self._cuda)
         self._range.__exit__(*exc)
         # a span held open across a generator's yield can close after spans
         # its consumer opened later: take out this one, not the newest
@@ -152,17 +169,28 @@ class _Span:
                 break
         SPANS.add(SpanRecord(self.id, self.name, self.start_ns, end_ns,
                              self.parent, self.stream, self.batch,
-                             self.counts))
+                             self.counts, self.events))
         return False
 
 
 def span(name: str, stream: int | None = None, batch: int | None = None,
-         **counts: int):
+         *, device: torch.device | None = None, **counts: int):
     """A context that records ``name`` while a profiler records, and does
-    nothing else otherwise (see the module's docstring)."""
+    nothing else otherwise (see the module's docstring); on a CUDA
+    ``device`` the record also carries a pair of timing events."""
     if not torch.autograd._profiler_enabled():
         return _OFF
-    return _Span(name, stream, batch, counts)
+    return _Span(name, stream, batch, counts, device)
+
+
+def device_ms(record: SpanRecord) -> float | None:
+    """The device time between a record's two CUDA events, in ms (waits
+    for the closing one), or ``None`` for a record without events."""
+    if record.events is None:
+        return None
+    start, end = record.events
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 class StageTimer:
