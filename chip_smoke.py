@@ -6,7 +6,8 @@
 Phases, one line each (any failure raises and the exit code is not 0):
 
 1. device: the card's name, its ``nvidia-smi`` name and power limit;
-2. build: the three kernel libraries (``grade``, ``grain``, ``probe``)
+2. build: the four kernel libraries (``grade``, ``grain``, ``lut``,
+   ``probe``)
    compiled from ``kernels/csrc`` with nvcc, all started together, and
    beside them probes of each kernel's per-pixel code, whose
    floating-point ``cuobjdump -sass`` instructions price the operations
@@ -68,7 +69,8 @@ Phases, one line each (any failure raises and the exit code is not 0):
     ``compare_videos`` side_by_side and blink on two 48-frame 1080p clips
     (frame count, size, blink period), with processed fps and the
     decode / device / encode split.  No TPU kernel lies on this path: its
-    run must launch none of the six;
+    run must launch none of the six ports of one, and ``lut_apply`` (the
+    LUT appliers' kernel) at least once;
 15. face repair and the secondary ops (cv2 with ``FaceDetectorYN`` is
     required): on a seeded 36-frame 1080p clip at 24 fps of the cartoon
     face of tests/test_face_detector.py (at 0.6x its 480p size) panning
@@ -110,7 +112,8 @@ Phases, one line each (any failure raises and the exit code is not 0):
     fused ``grade_video`` (``fused_mode: "pallas"``, the flagship stack
     with a seeded reference image) on a 48-frame 1080p clip at batch 8,
     six launches of each grade kernel and decoded byte for byte as the
-    in-process applier, the ``"xla"`` name launching neither; the LUT
+    in-process applier, the ``"xla"`` name launching neither but
+    ``lut_apply`` once a batch; the LUT
     route on a 4K PNG, byte for byte as in process; the enhancer's upload,
     load, preview (one ``film_grain`` launch) and a 1080p -> 4K render of
     24 frames (one launch a batch) against an in-process ``start_render``,
@@ -201,12 +204,20 @@ Phases, one line each (any failure raises and the exit code is not 0):
     judged and the stack's difference is printed.  Then ``film_grain`` at
     saturation_mix 0 and 1, intensity 1.0, and seed 2**31 - 1 from frame
     5 against its plain version, each batch of 2 bit for bit as 1 + 1.
-    One line a slider; the phase must end within 30 s.
+    One line a slider; the phase must end within 30 s;
+23. Apply LUT's kernel: ``lut_apply`` (``apply_lut_bundle`` on the card)
+    bit for bit against its plain version (``apply_lut_bundle_plain``, the
+    torch ops, on the card) with the flagship LUT at 10, at 1080p x 8 and
+    4K x 2 on seeded uniform and smooth frames, with the CUDA-event ms of
+    both beside the bytes term of its bound and its L2 gather (96 bytes a
+    pixel, in GB and at the rate the kernel reached); then Apply LUT's
+    stream (``_lut_effect`` through the appliers' generator) on 17 frames
+    of 1080p at batch 8, one launch a batch.
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
 runs, 17's grade, enhancer and concurrent requests, 18's, 19's and
-20's requests and commands, 21's bench configs and A/B layouts, and
-22's stack runs) is
+20's requests and commands, 21's bench configs and A/B layouts, 22's
+stack runs and 23's stream) is
 driven with the launch counts set to 0 just before it and
 read just after; launches made
 to compare a kernel with its plain version are not counted; a kernel's
@@ -216,7 +227,8 @@ x 2: the larger of its bytes at 3.35 TB/s and its floating-point
 operations, float32 at 67 TFLOP/s, MUFU and conversions at a sixteenth of
 that, float64 at 34 TFLOP/s; beside it ``issue_ms``, its probe's SASS
 instructions at the card's issue rate; and, for ``weighted_row_sum``, the
-time of ``torch.mv``, the one PyTorch call that computes its function),
+time of ``torch.mv``, the one PyTorch call that computes its function;
+``lut_apply`` replaces no TPU kernel and is listed with them),
 the ``nvidia-smi`` name and power limit, and ``{"ok": true, "device":
 {...}}``.  Exits with a non-zero code
 and prints no result when no CUDA card is visible or the package is
@@ -293,6 +305,15 @@ SERVER_CLICKS = (4.0, 44100, 120.0)                   # seconds, rate, bpm
 SERVE_START_LIMIT_S = 90.0
 SECONDARY = (1080, 1920)                              # H, W
 LORA = (4096, 4096, 16)
+# phase 23: lut_apply at Apply LUT's batch (1080p x 8) and at 4K x 2, the
+# same pixels, the flagship LUT at 10; Apply LUT's stream on a 17-frame
+# 1080p clip at batch 8 (frames, batch, H, W); the bundle row each pixel
+# gathers from L2 (no L2 bandwidth is published, so its bytes are printed
+# beside the HBM term, not priced)
+LUT_SHAPES = ((8, 1080, 1920), (2, 2160, 3840))
+LUT_STRENGTH = 10.0
+LUT_STREAM = (17, 8, 1080, 1920)
+LUT_GATHER_BYTES = 96
 # kernel vs plain on the card: nvcc contracts a*b+c into FMAs and its
 # powf/cbrtf/logf differ from the plain ops' by an ulp or two.  Measured
 # on an H100 (700 W): LAB 1.2e-4, A/B 9.5e-7, RGB 1.07e-5 with grain off
@@ -349,6 +370,7 @@ WARP_ISSUE_PER_CLOCK = 4
 # own; the halo's extra conversions are the kernel's overhead.
 SASS_PROBE_SOURCE = r"""
 #include "grade.cu"
+#include "lut.cu"
 
 #define PROBE(name)                                                \
   extern "C" __global__ void probe_##name(const float* __restrict__ in, \
@@ -415,6 +437,18 @@ PROBE(film_grain) {
     out[3 * i + c] = clip01(in[3 * i + c] + g[c] * in[2]);
   }
 }
+
+// lut_apply's pixel: coordinates, the bundle row, the float64-summed
+// trilerp and the blend
+PROBE(lut_apply) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float src[3] = {in[3 * i], in[3 * i + 1], in[3 * i + 2]};
+  const float dmin[3] = {in[0], in[1], in[2]};
+  const float span[3] = {in[3], in[4], in[5]};
+  float rgb[3];
+  lut_pixel(src, in + 8, n, dmin, span, in[6], keep_of(in[6]), rgb);
+  for (int c = 0; c < 3; ++c) out[3 * i + c] = rgb[c];
+}
 """
 # kernel -> (its source, the TPU kernel it replaces)
 SOURCES = {
@@ -430,6 +464,9 @@ SOURCES = {
                    "vrgdg_tpu/kernels/grain_pallas.py:52"),
     "weighted_row_sum": ("vrgdg_tpu_torch/kernels/csrc/probe.cu",
                          "tools/probe_transpose.py:34"),
+    "lut_apply": ("vrgdg_tpu_torch/kernels/csrc/lut.cu",
+                  "none in Pallas; vrgdg_tpu/ops/lut.py::apply_lut_bundle "
+                  "(XLA gather)"),
 }
 
 
@@ -561,7 +598,7 @@ def _finish_sass_probe(cubin: str, process) -> dict:
                           text=True, check=True, timeout=300).stdout
     counts = _sass_counts(text)
     expected = {"base", "grade_phase1", "grade_phase1_planes",
-                "grade_phase2", "film_grain"}
+                "grade_phase2", "film_grain", "lut_apply"}
     if set(counts) != expected:
         raise RuntimeError(f"SASS probe: found {sorted(counts)}")
     base = counts.pop("base")
@@ -597,6 +634,7 @@ def kernel_bounds(shape, bundle_bytes: int, sass: dict,
                                 sass["grade_phase2"]),
         "film_grain": (24 * pixels, sass["film_grain"]),
         "weighted_row_sum": (100 * pixels, {"fp32": 48}),
+        "lut_apply": (24 * pixels + bundle_bytes, sass["lut_apply"]),
     }
     issue_rate = SMS * WARP_ISSUE_PER_CLOCK * 32 * sm_clock_hz
     bounds = {}
@@ -1744,10 +1782,11 @@ def _compare_media(device, folder: str, clips: tuple[str, str]) -> None:
              encoder=result["encoder"])
 
 
-def images_and_compare(device) -> None:
+def images_and_compare(device) -> dict:
     """Phase 14: the still-image, preview and compare surface.  No TPU
     kernel lies on it, so its run (counts set to 0 just before, read just
-    after) must launch none of the six kernels."""
+    after) must launch none of the six ports of one; the LUT appliers
+    launch ``lut_apply``.  Returns the launches."""
     import cv2  # noqa: F401  (required: the phase fails without it)
 
     from vrgdg_tpu_torch.kernels import build
@@ -1764,10 +1803,12 @@ def images_and_compare(device) -> None:
         _compare_media(device, folder, clips)
         launched = {name: count for name, count in build.LAUNCHES.items()
                     if count}
-    if launched:
-        raise AssertionError(f"the images and compare path launched {launched}")
-    _say("images-and-compare", kernels_launched=0)
+    if set(launched) != {"lut_apply"}:
+        raise AssertionError(f"the images and compare path launched "
+                             f"{launched}, expected lut_apply alone")
+    _say("images-and-compare", kernels_launched=json.dumps(launched))
     torch.cuda.empty_cache()
+    return launched
 
 
 def _draw_face(canvas, center, scale: float):
@@ -2612,8 +2653,8 @@ def _same_frames(label: str, a: str, b: str) -> None:
 def _server_grade(srv, device, folder, clip,
                   reference) -> tuple[dict, str, dict]:
     """Phase 17's check 2: the fused ``grade_video`` by request against
-    the in-process applier, then the ``xla`` name, which launches no
-    kernel."""
+    the in-process applier, then the ``xla`` name, which launches neither
+    grade kernel: its eager LUT launches ``lut_apply`` once a batch."""
     from vrgdg_tpu_torch.api import appliers
 
     payload = {"input": clip, "lut": FLAGSHIP["lut_name"],
@@ -2662,8 +2703,8 @@ def _server_grade(srv, device, folder, clip,
         "POST", "/vrgdg/music_builder/post_process/grade_video",
         {**payload, "fused_mode": "xla",
          "output": os.path.join(folder, "graded_xla.mp4")}, mode="xla"))
-    _expect("grade_video xla", counts, {})
-    _say("server-grade", mode="xla", launches="{}",
+    _expect("grade_video xla", counts, {"lut_apply": batches})
+    _say("server-grade", mode="xla", launches=json.dumps(counts),
          elapsed_s=f"{body['result']['elapsed_seconds']:.3f}")
     return payload, out, launches
 
@@ -5270,6 +5311,58 @@ def adjust_sweep_phase(device, card: str) -> tuple[dict, dict]:
     return launches, errors
 
 
+def lut_phase(device, card: str, reps=10) -> tuple[float, tuple, dict]:
+    """Phase 23: ``lut_apply`` against its plain version on the card, and
+    Apply LUT's stream.  Returns the kernel's max abs error (0.0: any
+    other bit fails the phase), its (kernel, plain) ms at
+    :data:`TIMED_SHAPE` on uniform frames and the stream's launches."""
+    from vrgdg_tpu_torch.api import appliers, paths
+    from vrgdg_tpu_torch.core.cube import GLOBAL_LUT_CACHE, corner_bundle
+    from vrgdg_tpu_torch.ops.lut import (apply_lut_bundle,
+                                         apply_lut_bundle_plain)
+
+    lut = GLOBAL_LUT_CACHE.load(paths.safe_lut_path(FLAGSHIP["lut_name"]))
+    bundle = torch.from_numpy(corner_bundle(lut.table)).to(device)
+    dmin = torch.from_numpy(np.float32(lut.domain_min)).to(device)
+    dmax = torch.from_numpy(np.float32(lut.domain_max)).to(device)
+    timed = None
+    for index, shape in enumerate(LUT_SHAPES):
+        pixels = int(np.prod(shape))
+        bytes_ms = (24 * pixels + bundle.numel() * 4) / HBM_BYTES_PER_S * 1e3
+        gather_bytes = LUT_GATHER_BYTES * pixels
+        for content, frames in (
+                ("uniform", _frames(shape, 230 + index, device)),
+                ("smooth", _smooth_frames(shape, 240 + index, device))):
+            def kernel():
+                return apply_lut_bundle(frames, bundle, dmin, dmax,
+                                        LUT_STRENGTH)
+
+            def plain():
+                return apply_lut_bundle_plain(frames, bundle, dmin, dmax,
+                                              LUT_STRENGTH)
+
+            if not torch.equal(kernel(), plain()):
+                raise AssertionError(f"lut_apply differs from its plain "
+                                     f"version at {shape}, {content}")
+            kernel_ms, plain_ms = _timed_pair(kernel, plain, reps)
+            if tuple(shape) == TIMED_SHAPE and content == "uniform":
+                timed = (kernel_ms, plain_ms)
+            _say("lut-kernel", shape=_label(shape), content=content,
+                 vs_plain="bit-identical", lut_apply_ms=f"{kernel_ms:.4f}",
+                 plain_ms=f"{plain_ms:.4f}", bytes_ms=f"{bytes_ms:.4f}",
+                 l2_gather_gb=f"{gather_bytes / 1e9:.3f}",
+                 l2_gather_tb_s=f"{gather_bytes / kernel_ms / 1e9:.3f}",
+                 share_of_bytes=f"{100 * bytes_ms / kernel_ms:.1f}%",
+                 card=f"'{card}'")
+            del frames
+        torch.cuda.empty_cache()
+    effect, _ = appliers._lut_effect(FLAGSHIP["lut_name"], LUT_STRENGTH,
+                                     None, device)
+    launches = _stream_runs("lut-stream", effect, device, card,
+                            (LUT_STREAM,), ("lut_apply",), per_batch=True)
+    return 0.0, timed, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5330,7 +5423,7 @@ def main() -> int:
     resample_phase(device)
     launches["film_grain"] += enhance_path(device, card)["film_grain"]
     enhancer_job(device)
-    images_and_compare(device)
+    _add(launches, images_and_compare(device))
     face_repair_and_secondary_ops(device)
     for name, count in parallel_phase(device, config, lut, ref_stats,
                                       card).items():
@@ -5344,6 +5437,9 @@ def main() -> int:
     _add(launches, sweep_launches)
     for name, err in sweep_errors.items():
         errors[name] = max(errors[name], err)
+    errors["lut_apply"], times["lut_apply"], lut_launches = lut_phase(
+        device, card)
+    _add(launches, lut_launches)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

@@ -99,7 +99,7 @@ def test_kernels_match_plain_versions():
     assert gc.LAUNCHES == {"grade_phase1": 1, "grade_phase2": 1,
                            "grade_phase1_planes": 0,
                            "grade_phase2_planes": 0, "film_grain": 0,
-                           "weighted_row_sum": 0}
+                           "weighted_row_sum": 0, "lut_apply": 0}
     assert float((got - want).abs().max()) <= 5e-5
 
 
@@ -747,3 +747,126 @@ def test_lut_stream_on_card_matches_cpu_and_times_its_lut_stage():
             assert records[0].counts == {"frames": len(batch), "lut_size": 33}
             assert records[0].events is not None
             assert 0.0 < device_ms(records[0]) <= stats["device_ms"]
+
+
+# --------------------------------------------------------------------------
+# Apply LUT's kernel, bit for bit against its plain version on the CPU
+# --------------------------------------------------------------------------
+
+def _lut_case(size: int, seed: int, shape):
+    """A seeded (size^3, 24) bundle of a lattice with values a little
+    outside [0, 1], and frames from -0.25 to 1.25."""
+    from vrgdg_tpu_torch.core.cube import corner_bundle
+
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-0.1, 1.1, (size, size, size, 3)).astype(np.float32)
+    frames = rng.uniform(-0.25, 1.25, shape).astype(np.float32)
+    return (torch.from_numpy(corner_bundle(table)),
+            torch.from_numpy(frames))
+
+
+def _lut_kernel_and_plain(device, frames, bundle, dmin=None, dmax=None,
+                          strength=10.0):
+    """``apply_lut_bundle`` on the card (one ``lut_apply`` launch) and on
+    the CPU."""
+    from vrgdg_tpu_torch.ops.lut import apply_lut_bundle
+
+    gc.reset_launch_counts()
+    got = apply_lut_bundle(frames.to(device), bundle.to(device), dmin, dmax,
+                           strength)
+    torch.cuda.synchronize()
+    assert gc.LAUNCHES["lut_apply"] == 1
+    return got.cpu(), apply_lut_bundle(frames, bundle, dmin, dmax, strength)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", (3, 4))
+@pytest.mark.parametrize("strength", (0.0, 3.7, 10.0, 12.5, -1.0))
+@pytest.mark.parametrize("size", (2, 17, 33, 65))
+def test_lut_kernel_is_the_plain_version_bit_for_bit(size, strength,
+                                                     channels):
+    """Lattices of 2 to 65 (a 65^3 bundle is 26 MB), strengths in and out
+    of 0-10, values below 0 and above 1; alpha comes back unchanged."""
+    device = _card()
+    bundle, frames = _lut_case(size, size, (2, 67, 101, channels))
+    got, want = _lut_kernel_and_plain(device, frames, bundle,
+                                      strength=strength)
+    assert torch.equal(got, want)
+    assert torch.equal(got[..., 3:], frames[..., 3:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dmin,dmax", [
+    ((0.1, 0.1, 0.1), (0.9, 0.9, 0.9)),
+    ((0.1, 0.5, 0.0), (0.9, 0.5 + 5e-7, 1.0)),   # green span floored to 1e-6
+])
+def test_lut_kernel_domains_are_the_plain_version_bit_for_bit(dmin, dmax):
+    """The domain from the host and, as ``prepare_operands`` hands it over,
+    as tensors on the card."""
+    from vrgdg_tpu_torch.ops.lut import apply_lut_bundle
+
+    device = _card()
+    bundle, frames = _lut_case(33, 21, (2, 67, 101, 4))
+    dmin, dmax = np.asarray(dmin, np.float32), np.asarray(dmax, np.float32)
+    got, want = _lut_kernel_and_plain(device, frames, bundle, dmin, dmax,
+                                      7.0)
+    assert torch.equal(got, want)
+    on_card = apply_lut_bundle(frames.to(device), bundle.to(device),
+                               torch.from_numpy(dmin).to(device),
+                               torch.from_numpy(dmax).to(device), 7.0)
+    assert torch.equal(on_card.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 1, 3), (2, 67, 101, 4),
+                                   (8, 1080, 1920, 3), (1, 1080, 1920, 3)])
+def test_lut_kernel_on_the_flagship_lut_at_its_shapes(shape):
+    """``teal_orange.cube`` at its own domain on uint8 levels, the stream's
+    batches and a tail frame."""
+    from vrgdg_tpu_torch.core.cube import corner_bundle
+
+    device = _card()
+    lut = parse_cube(LUT)
+    bundle = torch.from_numpy(corner_bundle(lut.table))
+    rng = np.random.default_rng(22)
+    frames = torch.from_numpy(
+        rng.integers(0, 256, shape).astype(np.float32) / 255.0)
+    got, want = _lut_kernel_and_plain(device, frames, bundle, lut.domain_min,
+                                      lut.domain_max, 10.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lut_kernel_takes_views_and_other_float_dtypes():
+    """A non-contiguous view is made contiguous, and float64 and float16
+    batches have their rgb cast to float32 and back, alpha untouched, as
+    the plain version does."""
+    device = _card()
+    bundle, base = _lut_case(17, 23, (2, 40, 30, 4))
+    view = base.transpose(1, 2)[:, 1::2, :, :3]
+    assert not view.is_contiguous()
+    got, want = _lut_kernel_and_plain(device, view, bundle, strength=8.0)
+    assert torch.equal(got, want)
+    for dtype in (torch.float64, torch.float16):
+        frames = base.to(dtype)
+        got, want = _lut_kernel_and_plain(device, frames, bundle,
+                                          strength=8.0)
+        assert got.dtype == dtype and torch.equal(got, want)
+        assert torch.equal(got[..., 3], frames[..., 3])
+
+
+@pytest.mark.cuda
+def test_lut_stream_launches_lut_apply_once_per_batch():
+    """Apply LUT's stream at the cell's batch 8: a 17-frame clip is three
+    batches, each one ``lut_apply`` launch."""
+    device = _card()
+    clip = np.random.default_rng(24).integers(0, 256, (17, 1080, 1920, 3),
+                                              np.uint8)
+    batches = [(start, clip[start:start + 8]) for start in range(0, 17, 8)]
+    effect, _ = appliers._lut_effect("teal_orange.cube", 10.0,
+                                     os.path.join(REPO, "LUTS"), device)
+    gc.reset_launch_counts()
+    got = list(appliers.stream_graded_batches(
+        batches, effect, batch_size=8, device=device, dispatch_depth=2))
+    assert gc.LAUNCHES["lut_apply"] == 3
+    assert [g.shape[0] for g in got] == [8, 8, 1]

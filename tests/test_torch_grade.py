@@ -435,13 +435,16 @@ def test_smoke_sass_count_prices_float_instructions_by_class():
         (2, 2160, 3840), 33 ** 3 * 96,
         {name: {"fp32": 400, "xu": 200, "fp64": 0, "instructions": 600}
          for name in ("grade_phase1", "grade_phase1_planes",
-                      "grade_phase2", "film_grain")}, clock)
+                      "grade_phase2", "film_grain", "lut_apply")}, clock)
     pixels = 2 * 2160 * 3840
     issue_ms = 600 * pixels / (132 * 4 * 32 * clock) * 1e3
     assert bounds["grade_phase2"] == (
         pytest.approx(200 * pixels / smoke.XU_OPS_PER_S * 1e3), "operations",
         pytest.approx(issue_ms))
     assert bounds["grade_phase2_planes"] == bounds["grade_phase2"]
+    # lut_apply's 24 bytes a pixel and the bundle lie under the same
+    # operations
+    assert bounds["lut_apply"] == bounds["grade_phase2"]
     assert bounds["film_grain"][2] == pytest.approx(issue_ms)
     assert bounds["weighted_row_sum"] == (
         pytest.approx(100 * pixels / smoke.HBM_BYTES_PER_S * 1e3), "bytes",

@@ -198,7 +198,8 @@ def test_wrappers_run_plain_versions_on_cpu(stack):
                        gc.phase2_plain(lab, coeff, **kw))
     assert gc.LAUNCHES == dict.fromkeys(
         ("grade_phase1", "grade_phase2", "grade_phase1_planes",
-         "grade_phase2_planes", "film_grain", "weighted_row_sum"), 0)
+         "grade_phase2_planes", "film_grain", "weighted_row_sum",
+         "lut_apply"), 0)
 
 
 def test_phase2_grain_is_the_eager_stream(stack):

@@ -4,12 +4,12 @@ The sources under ``kernels/csrc/`` have a plain C interface (raw device
 pointers, shapes, scalars and a ``cudaStream_t``), so they compile in
 seconds without PyTorch's headers and bind through :mod:`ctypes`; no
 ``ninja`` and no ``torch.utils.cpp_extension`` are needed.  Each ``.cu``
-builds into a library of its own (``grade``, ``grain``, ``probe``), one
-``nvcc`` process per source, all started together at first use, into
-``kernels/_build/`` under a name that carries a hash of the source, the
-shared headers and the flags, so an edited source rebuilds.  ``ptxas -v``
-output (registers, shared memory, spills per kernel) is kept beside each
-library as ``<name>.log``.
+builds into a library of its own (``grade``, ``grain``, ``lut``,
+``probe``), one ``nvcc`` process per source, all started together at first
+use, into ``kernels/_build/`` under a name that carries a hash of the
+source, the shared headers and the flags, so an edited source rebuilds.
+``ptxas -v`` output (registers, shared memory, spills per kernel) is kept
+beside each library as ``<name>.log``.
 
 :data:`LAUNCHES` counts the kernel launches of every wrapper; a wrapper
 adds one through :func:`check_launch` after its kernel launched, and
@@ -44,7 +44,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 # launches per kernel, by the name each wrapper counts under
 LAUNCHES = {name: 0 for name in (
     "grade_phase1", "grade_phase2", "grade_phase1_planes",
-    "grade_phase2_planes", "film_grain", "weighted_row_sum")}
+    "grade_phase2_planes", "film_grain", "weighted_row_sum", "lut_apply")}
 
 
 class KernelBuildError(RuntimeError):
@@ -154,6 +154,10 @@ def _bind(stem: str, lib: ctypes.CDLL) -> None:
         "grain": {
             "vrgdg_film_grain": [i32, ptr, i32, i32, i32, i32, i32, i32, f32,
                                  f32, f32, u32, ptr, ptr],
+        },
+        "lut": {
+            "vrgdg_lut_apply": [i32, ptr, i64, i32, ptr, i32, ptr, ptr, f32,
+                                ptr, ptr],
         },
         "probe": {
             "vrgdg_weighted_row_sum": [i32, ptr, i64, ptr, ptr],

@@ -7,12 +7,16 @@ span floor, lattice coordinates ``norm * (N-1)``, floor/ceil corner indices
 fractions.  Strength 0-10 maps to a 0-1 source/graded blend; alpha
 channels pass through.
 
-Two implementations of the same math, bit-identical to each other:
+Implementations of the same math, bit-identical to each other:
 
 - :func:`apply_lut` reads the eight corners from the raw ``(N^3, 3)``
-  table;
-- :func:`apply_lut_bundle` reads all eight in one row gather from the
-  ``(N^3, 24)`` corner bundle (:func:`vrgdg_tpu_torch.core.cube.corner_bundle`).
+  table, in torch ops on any device;
+- :func:`apply_lut_bundle` reads all eight in one row of the ``(N^3, 24)``
+  corner bundle (:func:`vrgdg_tpu_torch.core.cube.corner_bundle`): on a
+  CUDA tensor it launches the ``lut_apply`` kernel
+  (:func:`vrgdg_tpu_torch.kernels.lut_cuda.lut_apply`) or raises; on any
+  other device it runs :func:`apply_lut_bundle_plain`, the same function in
+  torch ops (one row gather).
 
 :func:`lut_identity_error` runs a dense identity probe through
 :func:`apply_lut` and returns its max abs error.
@@ -116,8 +120,24 @@ def apply_lut(frames: torch.Tensor, lut, domain_min=None, domain_max=None,
 def apply_lut_bundle(frames: torch.Tensor, bundle: torch.Tensor,
                      domain_min=None, domain_max=None,
                      strength: float = 10.0) -> torch.Tensor:
-    """Apply a 3D LUT via its ``(N^3, 24)`` corner bundle; bit-identical to
-    :func:`apply_lut` for arbitrary inputs."""
+    """Apply a 3D LUT via its ``(N^3, 24)`` corner bundle; on the CPU
+    bit-identical to :func:`apply_lut` for arbitrary inputs, and on the
+    card the CPU's bits.  CUDA frames go to the ``lut_apply`` kernel, all
+    others to :func:`apply_lut_bundle_plain`."""
+    if frames.device.type == "cuda":
+        from ..kernels import lut_cuda
+
+        return lut_cuda.lut_apply(frames, bundle, domain_min, domain_max,
+                                  strength)
+    return apply_lut_bundle_plain(frames, bundle, domain_min, domain_max,
+                                  strength)
+
+
+def apply_lut_bundle_plain(frames: torch.Tensor, bundle: torch.Tensor,
+                           domain_min=None, domain_max=None,
+                           strength: float = 10.0) -> torch.Tensor:
+    """:func:`apply_lut_bundle` in torch ops on the frames' device: the
+    ``(..., 24)`` row gather and the float64-summed lerps."""
     device = frames.device
     size = round(bundle.shape[0] ** (1.0 / 3.0))
     dmin = _as_tensor(domain_min, device, 0.0)
