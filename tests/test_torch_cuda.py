@@ -382,9 +382,9 @@ def test_batch_streams_record_their_spans_on_the_card():
     """Under ``torch.profiler`` (CPU and CUDA) both streams record each
     batch's pinned staging, enqueue and wait, the fused phases and the
     enhance step's parts under the enqueue, and the ``vrgdg.*`` ranges
-    land in the trace beside the device's work.  The grade runs its tail
+    land in the trace beside the device's work.  Both run their tail
     batch at its real length (no pad; the tail's enqueue counts the
-    ``short_frames`` it lacks); the enhancer pads its tail."""
+    ``short_frames`` it lacks)."""
     from torch.profiler import ProfilerActivity, profile
 
     from vrgdg_tpu_torch.runtime.profiling import SPANS
@@ -415,14 +415,10 @@ def test_batch_streams_record_their_spans_on_the_card():
         for name in ("batch.stage", "batch.enqueue", "batch.wait"):
             assert [r.batch for r in by[name]] == [0, 1, 2], name
         enqueued = [r.counts for r in by["batch.enqueue"]]
-        if "grade.phase1" in by:
-            assert "batch.pad" not in by
-            assert enqueued == [{"frames": 2}, {"frames": 2},
-                                {"frames": 1, "short_frames": 1}]
-            assert sum(c["frames"] for c in enqueued) == 5
-        else:
-            assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
-            assert sum(c["frames"] for c in enqueued) == 6
+        assert "batch.pad" not in by
+        assert enqueued == [{"frames": 2}, {"frames": 2},
+                            {"frames": 1, "short_frames": 1}]
+        assert sum(c["frames"] for c in enqueued) == 5
         enqueues = {r.id for r in by["batch.enqueue"]}
         children = (("grade.phase1", "grade.stats", "grade.phase2")
                     if "grade.phase1" in by else

@@ -152,6 +152,37 @@ def test_effects_batch_boundary_determinism():
     np.testing.assert_array_equal(whole[3:], again)
 
 
+def test_enhance_batches_run_the_short_tail_unpadded(monkeypatch):
+    """``enhance_batches`` at batch 2 over a 5-frame clip runs the step on
+    2, 2 and 1 frames (no pad frame) and writes the bytes the same clip
+    gives at batch 1."""
+    settings = EnhancerSettings.normalize({**GRAIN, "sharpen_strength": 1.2})
+    clip = np.random.default_rng(8).integers(0, 256, (5, 12, 16, 3), np.uint8)
+    lengths: list = []
+    real = tenh._enhance_step
+
+    def step(frames, *args):
+        lengths.append(int(frames.shape[0]))
+        return real(frames, *args)
+
+    monkeypatch.setattr(tenh, "_enhance_step", step)
+
+    def run(batch):
+        written: list = []
+        done, smallest = tenh.enhance_batches(
+            [(i, clip[i:i + batch]) for i in range(0, 5, batch)], settings,
+            24, 32, device="cpu", batch_size=batch, write=written.append)
+        assert (done, smallest) == (5, batch)
+        return written
+
+    pairs = run(2)
+    assert lengths == [2, 2, 1]
+    assert [w.shape[0] for w in pairs] == [2, 2, 1]
+    singles = run(1)
+    assert lengths[3:] == [1] * 5
+    assert np.concatenate(pairs).tobytes() == np.concatenate(singles).tobytes()
+
+
 def _grain_stats(noise):
     stds = noise.reshape(-1, 3).std(axis=0)
     return stds[0] / stds[1], stds[2] / stds[1], stds[1], noise.mean()

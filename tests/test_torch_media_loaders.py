@@ -1,9 +1,10 @@
 """The port's folder loaders (vrgdg_tpu_torch.runtime.media_loaders) and
 video reader against vrgdg_tpu's, on the CPU: the cases of
 tests/test_media_loaders.py, each run through both packages on the same
-files, with the decoded frames equal bit for bit.  Also the appliers'
+files, with the decoded frames equal bit for bit.  Also the
 ``VRGDG_DISPATCH_DEPTH`` override, which changes the pipelining and not
-the output bytes.
+the output bytes, and which reaches both batch streams (the appliers' and
+the enhancer's).
 """
 
 import os
@@ -20,6 +21,9 @@ cv2 = pytest.importorskip("cv2")
 from vrgdg_tpu.runtime import media_loaders as jml
 from vrgdg_tpu.runtime import video_io as jvio
 from vrgdg_tpu_torch.api import appliers as tap
+from vrgdg_tpu_torch.core.params import EnhancerSettings
+from vrgdg_tpu_torch.jobs import enhancer as tenh
+from vrgdg_tpu_torch.runtime import batch_stream
 from vrgdg_tpu_torch.runtime import media_loaders as tml
 from vrgdg_tpu_torch.runtime import video_io as tvio
 
@@ -182,3 +186,37 @@ def test_dispatch_depth_env_overrides_and_keeps_bytes(tmp_path, monkeypatch):
                                        {"contrast": 25}, batch_size=2,
                                        device="cpu")
     assert result["dispatch_depth"] == 2
+
+
+@pytest.mark.parametrize("caller", ["grade", "enhance"])
+def test_dispatch_depth_env_reaches_both_streams(tmp_path, monkeypatch,
+                                                 caller):
+    """``VRGDG_DISPATCH_DEPTH`` reaches the grade's stream (through
+    ``_apply_effect_to_video``) and the enhancer's (``enhance_batches``)
+    through ``batch_stream.dispatch_depth``: both FIFOs fill to 3."""
+    full: list = []
+    real_push = batch_stream.InFlight.push
+
+    def push(self, *args):
+        due = real_push(self, *args)
+        full.append((self.depth, len(self)))
+        return due
+
+    monkeypatch.setattr(batch_stream.InFlight, "push", push)
+    monkeypatch.setenv("VRGDG_DISPATCH_DEPTH", "3")
+    if caller == "grade":
+        clip = _write_clip(tmp_path / "clip.mp4", 7, size=(48, 32), seed=5)
+        result = tap.apply_adjust_to_video(
+            clip, str(tmp_path / "out.mp4"), {"contrast": 25}, batch_size=2,
+            device="cpu")
+        assert result["processed_frames"] == 7
+    else:
+        frames = np.random.default_rng(5).integers(0, 256, (7, 8, 8, 3),
+                                                   np.uint8)
+        done, _ = tenh.enhance_batches(
+            [(i, frames[i:i + 2]) for i in range(0, 7, 2)],
+            EnhancerSettings.normalize({"sharpen_strength": 1.0}), 8, 8,
+            device="cpu", batch_size=2, write=lambda out: None)
+        assert done == 7
+    assert {depth for depth, _ in full} == {3}
+    assert max(length for _, length in full) == 3

@@ -11,8 +11,9 @@ on the CPU.
   batch runs at its real length (no ``batch.pad``), its ``batch.enqueue``
   counts the one ``short_frames`` it lacks, ``frames`` sum to 5, the
   fused grade's phases under each enqueue.
-- ``enhance_batches``: one ``batch.enqueue`` a batch, the step's parts
-  under it.
+- ``enhance_batches`` over the same clip: the same rule (no ``batch.pad``,
+  the tail's enqueue counts its ``short_frames``, no staging or wait on
+  the CPU), the step's parts under each enqueue.
 - ``stage_seconds`` keeps exactly its keys with the profiler on.
 - The log drops its oldest records at its bound and counts them.
 """
@@ -207,10 +208,12 @@ def test_enhance_batches_records_an_enqueue_a_batch():
     by = _by_name(records)
     enqueue = by["batch.enqueue"]
     assert [r.batch for r in enqueue] == [0, 1, 2]
-    assert [r.counts for r in enqueue] == [{"frames": 2}] * 3
-    assert [r.counts for r in by["batch.pad"]] == [{"pad_frames": 1}]
-    assert [r.batch for r in by["batch.wait"]] == [0, 1, 2]
-    assert len({r.stream for r in enqueue + by["batch.wait"]}) == 1
+    assert [r.counts for r in enqueue] == [
+        {"frames": 2}, {"frames": 2}, {"frames": 1, "short_frames": 1}]
+    assert sum(r.counts["frames"] for r in enqueue) == 5
+    # the CPU path has no pad, no pinned staging and no wait
+    assert not {"batch.pad", "batch.stage", "batch.wait"} & set(by)
+    assert len({r.stream for r in enqueue}) == 1
     enqueue_ids = {r.id for r in enqueue}
     for name in ("enhance.resample", "enhance.sharpen", "enhance.grain"):
         assert len(by[name]) == 3

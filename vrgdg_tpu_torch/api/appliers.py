@@ -8,10 +8,10 @@ appliers, the before/after previews) are read and written through
 :mod:`vrgdg_tpu_torch.runtime.image_io`, which gives Pillow's pixels.
 
 The per-batch loop lives in :func:`stream_graded_batches`, a generator over
-uint8 ``(B, H, W, 3)`` host batches: uint8 upload, dequantize, the effect,
-quantize, uint8 download.  :func:`_apply_effect_to_video` wraps it with the
-video reader and writer; it runs just as well over an in-memory batch
-source.
+uint8 ``(B, H, W, 3)`` host batches through
+:mod:`vrgdg_tpu_torch.runtime.batch_stream`: uint8 upload, dequantize, the
+effect, quantize, uint8 download.  :func:`_apply_effect_to_video` wraps it
+with the video reader and writer; it runs as well over in-memory batches.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ import os
 import subprocess
 import tempfile
 import time
-from collections import deque
 from typing import Callable, Iterable, Iterator
 
 import numpy as np
@@ -32,22 +31,11 @@ from ..core.params import (AdjustSettings, ColorMatchParams, GrainParams,
                            LUTParams, SharpenParams)
 from ..ops.color_match import lab_statistics
 from ..ops.grade import GradeConfig, grade_prepared, prepare_operands
-from ..runtime import image_io, profiling, video_io
+from ..runtime import batch_stream, image_io, profiling, video_io
+from ..runtime.batch_stream import resolve_device
 from . import paths
 
 Effect = Callable[[torch.Tensor, int], torch.Tensor]
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for a name; asking for CUDA without a visible card
-    raises instead of carrying on on the CPU."""
-    resolved = torch.device(device)
-    if resolved.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} was requested but no CUDA device is "
-            "available (torch.cuda.is_available() is False); pass "
-            "device='cpu' to run the plain versions on the CPU.")
-    return resolved
 
 
 def device_name(device) -> str:
@@ -136,99 +124,45 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
                           timer: profiling.StageTimer | None = None,
                           stats: dict | None = None) -> Iterator[np.ndarray]:
     """Run ``effect`` over ``(first_frame_index, uint8 (B, H, W, 3))`` host
-    batches and yield the uint8 results, in order.
-
-    Each batch runs at its own length: a clip's short tail batch is
-    staged, uploaded, run, quantized and downloaded at its real frame
-    count, with no pad frames.  Nothing here is compiled per shape and
-    every stage is frame-local (per-frame colour-match statistics, grain
-    keyed on seed + absolute frame index), so a frame's output does not
-    depend on the batch it runs in.  Up to ``dispatch_depth`` batches are
-    in flight: on CUDA each batch's upload, kernels and download are
-    queued on the current stream without waiting, through pinned host
-    buffers, and the host waits for a batch only when its result is due,
-    so host decode and encode overlap device work.
-
-    ``stats`` (optional) receives ``frames``, ``batches`` and, on CUDA,
-    ``device_ms``: the summed CUDA-event time from each batch's upload to
-    the end of its download.  While a profiler records, each batch's
-    ``batch.stage`` (the pinned buffer and the host copy into it),
-    ``batch.enqueue`` (counting the ``frames`` the device runs and, on a
-    batch shorter than ``batch_size``, the ``short_frames`` it lacks) and
-    ``batch.wait`` are :func:`~vrgdg_tpu_torch.runtime.profiling.span` s
-    under ``timer``'s ``device`` stage; on the CPU only the enqueue.
-    """
+    batches and yield the uint8 results, in order: each batch, at its own
+    length, is uploaded, dequantized, run, quantized and downloaded by
+    :mod:`~vrgdg_tpu_torch.runtime.batch_stream` with up to
+    ``dispatch_depth`` in flight, so host decode and encode overlap device
+    work.  ``stats`` (optional) receives ``frames``, ``batches`` and, on
+    CUDA, ``device_ms``; the batch spans nest under ``timer``'s ``device``
+    stage."""
     device = resolve_device(device)
     timer = timer or profiling.StageTimer()
-    stats = {} if stats is None else stats
-    stats.update(frames=0, batches=0)
-    if device.type == "cuda":
-        stats["device_ms"] = 0.0
-    depth = max(1, int(dispatch_depth))
-    in_flight: deque = deque()
-    stream = profiling.next_stream()
-    span = profiling.span
+    in_flight = batch_stream.InFlight(dispatch_depth, stats, device)
+    stream = in_flight.stream
 
-    def submit(frame_index: int, batch: np.ndarray, index: int):
-        frames = int(batch.shape[0])
-        counts = {"frames": frames}
-        if 0 < frames < batch_size:
-            counts["short_frames"] = batch_size - frames
-        if device.type != "cuda":
-            with span("batch.enqueue", stream, index, **counts):
-                host = torch.from_numpy(np.ascontiguousarray(batch))
-                out = video_io.quantize_on_device(effect(
-                    video_io.dequantize_on_device(host.to(device)),
-                    frame_index))
-            return out, None, index
-        with span("batch.stage", stream, index):
-            host = torch.from_numpy(np.ascontiguousarray(batch))
-            pinned = torch.empty(host.shape, dtype=torch.uint8,
-                                 pin_memory=True)
-            pinned.copy_(host)
-        with span("batch.enqueue", stream, index, **counts):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            on_device = pinned.to(device, non_blocking=True)
-            out = video_io.quantize_on_device(effect(
-                video_io.dequantize_on_device(on_device), frame_index))
-            host_out = torch.empty(out.shape, dtype=torch.uint8,
-                                   pin_memory=True)
-            host_out.copy_(out, non_blocking=True)
-            end.record()
-        return host_out, (start, end), index
+    def step(frame_index: int) -> Callable:
+        return lambda on_device: video_io.quantize_on_device(effect(
+            video_io.dequantize_on_device(on_device), frame_index))
 
-    def force(item) -> np.ndarray:
-        out, events, index = item
-        if events is not None:
-            with span("batch.wait", stream, index):
-                events[1].synchronize()
-            stats["device_ms"] += events[0].elapsed_time(events[1])
-        result = out.cpu().numpy()
-        stats["frames"] += result.shape[0]
-        stats["batches"] += 1
-        return result
+    def force() -> np.ndarray:
+        pending, ids, _ = in_flight.popleft()
+        return in_flight.wait(pending, ids)
 
     iterator = iter(batches)
-    submitted = 0
     while True:
         with timer.stage("decode", stream):
             item = next(iterator, None)
         if item is None:
             break
         frame_index, batch = item
-        with timer.stage("device", stream):
-            in_flight.append(submit(int(frame_index), batch, submitted))
-            submitted += 1
-            if len(in_flight) < depth:
+        ids = in_flight.next_ids()
+        with timer.stage("device", *ids):
+            pending = batch_stream.submit(batch, step(int(frame_index)),
+                                          device, batch_size)
+            if not in_flight.push(pending, ids):
                 continue
-            out = force(in_flight.popleft())
+            out = force()
         with timer.stage("encode", stream):
             yield out
     while in_flight:
         with timer.stage("device", stream):
-            out = force(in_flight.popleft())
+            out = force()
         with timer.stage("encode", stream):
             yield out
 
@@ -261,10 +195,7 @@ def _apply_effect_to_video(input_path, effect: Effect, *, tag: str, device,
 
     metadata = video_io.probe_video(input_path)
     fps, width, height = metadata["fps"], metadata["width"], metadata["height"]
-    # VRGDG_DISPATCH_DEPTH overrides the pipelining depth (1 = the
-    # synchronous loop that A/B runs use)
-    dispatch_depth = int(os.environ.get("VRGDG_DISPATCH_DEPTH")
-                         or dispatch_depth)
+    dispatch_depth = batch_stream.dispatch_depth(dispatch_depth)
     started = time.perf_counter()
     stats: dict = {}
     timer = profiling.StageTimer()
@@ -313,7 +244,7 @@ def _apply_effect_to_video(input_path, effect: Effect, *, tag: str, device,
         "encoder": encoder,
         "browser_friendly": bool(ffmpeg_result.get("ok")),
         "ffmpeg_encode": ffmpeg_result,
-        "dispatch_depth": max(1, int(dispatch_depth)),
+        "dispatch_depth": dispatch_depth,
         # decode = waiting on the prefetching reader, device = upload +
         # effect + download, encode = cv2 write (downstream of yield)
         "stage_seconds": timer.seconds(),

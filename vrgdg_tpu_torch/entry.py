@@ -69,9 +69,9 @@ def entry(device="cuda"):
     """Return ``(fn, example_args)``: the flagship grade step in its fused
     mode (the two CUDA kernels on a card) and a seeded (4, 256, 256, 3)
     batch on ``device``."""
-    from .api.appliers import resolve_device
     from .ops.color_match import lab_statistics
     from .ops.grade import grade
+    from .runtime.batch_stream import resolve_device
 
     device = resolve_device(device)
     config, lut = _flagship_config("fused")

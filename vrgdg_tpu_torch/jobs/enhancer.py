@@ -21,12 +21,11 @@ unsharp -> seeded grain.  The grain goes through
 :func:`~vrgdg_tpu_torch.kernels.grain_cuda.film_grain_kernel`: the
 ``film_grain`` CUDA kernel on a card (it raises if it cannot build or
 launch), its plain version on the CPU; both draw the port's one Philox
-stream.  Frames cross as uint8 through pinned host buffers with
-non-blocking copies, and a CUDA event per batch says when its result is on
-the host, so up to ``VRGDG_DISPATCH_DEPTH`` (default 2) batches are in
-flight.  An out-of-memory error surfaces when torch allocates, that is
-when a batch is submitted; both the submit and the force branch bisect
-the batch and keep frame order.
+stream.  Batches, each at its own length, go through the streamed batch
+the grade also runs on (:mod:`vrgdg_tpu_torch.runtime.batch_stream`), up
+to ``VRGDG_DISPATCH_DEPTH`` (default 2) in flight.  An out-of-memory error
+surfaces when torch allocates, that is when a batch is submitted; both
+the submit and the force branch bisect the batch and keep frame order.
 
 On more than one card (:func:`mesh_for_settings`) a batch is padded to
 the mesh's data axis on the host while still uint8, each data row's block
@@ -49,13 +48,11 @@ import shutil
 import threading
 import time
 import uuid
-from collections import deque
 from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
-from ..api.appliers import resolve_device
 from ..core.params import EnhancerSettings, auto_batch_size, output_dimensions
 from ..kernels.grain_cuda import film_grain_kernel
 from ..ops.resize import lanczos_support, resample, resample_rows
@@ -64,7 +61,9 @@ from ..parallel.distributed import local_devices
 from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, make_mesh, pad_to_multiple
 from ..parallel.spatial import HeightShards, place, row_starts
 from ..runtime import video_io
-from ..runtime.profiling import StageTimer, next_stream, span
+from ..runtime.batch_stream import (InFlight, PendingBatch, dispatch_depth,
+                                    enqueue_counts, resolve_device, submit)
+from ..runtime.profiling import StageTimer, span
 from . import manifest as mf
 
 _DEFAULT_ROOT = os.environ.get(
@@ -177,29 +176,6 @@ def mesh_for_settings(settings: EnhancerSettings, device="cuda"):
                      span_processes=False)
 
 
-class PendingBatch:
-    """A submitted batch: its result on the host once every CUDA event in
-    ``events`` has passed, the count of frames submitted, and one pair of
-    CUDA events per card around its upload .. download (``None`` on the
-    CPU)."""
-
-    def __init__(self, host: torch.Tensor, count: int, events=None):
-        self.host = host
-        self.count = count
-        self.events = events
-
-    def result(self) -> np.ndarray:
-        for _, end in self.events or ():
-            end.synchronize()
-        return self.host.numpy()[:self.count]
-
-    def device_ms(self) -> float:
-        """CUDA-event ms from upload to the end of download (after
-        :meth:`result`), the longest of the cards'; 0.0 on the CPU."""
-        return max((start.elapsed_time(end)
-                    for start, end in self.events or ()), default=0.0)
-
-
 def _submit_on_mesh(host: torch.Tensor, count: int, step, spatial_step,
                     mesh) -> PendingBatch:
     """Pad ``host`` (uint8 or float32 BHWC) to the mesh's data axis, run
@@ -250,29 +226,24 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                          out_height: int | None = None,
                          out_width: int | None = None,
                          frame_start: int = 0, mesh=None,
-                         as_uint8: bool = False, *,
-                         device="cuda") -> PendingBatch:
+                         as_uint8: bool = False, *, device="cuda",
+                         batch_size: int = 0) -> PendingBatch:
     """Queue the device step on ``device`` (or over ``mesh``) WITHOUT
     waiting for it.
 
-    ``frames`` is a BHWC uint8 (or float32 [0,1]) host batch.  On CUDA it
-    is copied into a pinned buffer, uploaded, dequantized, enhanced,
-    quantized when ``as_uint8`` (4x less to download; bit-identical to
-    quantizing on the host) and downloaded into a pinned buffer, all
-    queued on the current stream; :meth:`PendingBatch.result` waits for
-    it.  On the CPU the step runs at once.
+    ``frames`` is a BHWC uint8 (or float32 [0,1]) host batch, run by
+    :func:`~vrgdg_tpu_torch.runtime.batch_stream.submit`: dequantized,
+    enhanced and quantized when ``as_uint8`` (4x less to download;
+    bit-identical to quantizing on the host).  ``batch_size``: the
+    stream's, for the ``short_frames`` count of ``batch.enqueue``.
 
-    With ``mesh`` the batch is padded to divide over the mesh's data axis
-    (repeating the last frame, on the host, still uint8; the padding is
-    trimmed after), each data row's block goes to its card and runs with
-    ``frame_start`` advanced to its first frame, and the results come back
-    in order (``device`` is then unused)."""
+    With ``mesh`` the batch runs over the mesh's cards instead
+    (:func:`_submit_on_mesh`: padded to divide its data axis, on the host,
+    still uint8; the padding is trimmed after)."""
     if out_height is None:
         out_height = int(frames.shape[1])
     if out_width is None:
         out_width = int(frames.shape[2])
-    count = int(frames.shape[0])
-    host = torch.from_numpy(np.ascontiguousarray(frames))
 
     def finish(out: torch.Tensor) -> torch.Tensor:
         return video_io.quantize_on_device(out) if as_uint8 else out
@@ -290,28 +261,12 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                             int(out_width), int(frame_start) + offset)
         return out.map(lambda tile, rows: finish(tile))
 
-    if mesh is not None:
-        with span("batch.enqueue", frames=count):
-            return _submit_on_mesh(host, count, step, spatial_step, mesh)
-    device = resolve_device(device)
-    if device.type != "cuda":
-        with span("batch.enqueue", frames=count):
-            return PendingBatch(step(host.to(device)).cpu(), count)
-    with torch.cuda.device(device):
-        with span("batch.stage"):
-            pinned = torch.empty(host.shape, dtype=host.dtype,
-                                 pin_memory=True)
-            pinned.copy_(host)
-        with span("batch.enqueue", frames=count):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = step(pinned.to(device, non_blocking=True))
-            host_out = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-            host_out.copy_(out, non_blocking=True)
-            end.record()
-    return PendingBatch(host_out, count, [(start, end)])
+    if mesh is None:
+        return submit(frames, step, resolve_device(device), batch_size)
+    count = int(frames.shape[0])
+    with span("batch.enqueue", **enqueue_counts(count, batch_size)):
+        host = torch.from_numpy(np.ascontiguousarray(frames))
+        return _submit_on_mesh(host, count, step, spatial_step, mesh)
 
 
 def apply_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
@@ -420,31 +375,6 @@ JOBS = JobRegistry()
 # Render engine
 # --------------------------------------------------------------------------
 
-def _force_entry(in_flight: deque, settings, out_h: int, out_w: int, device,
-                 mesh, smallest_batch: int, timer, write, stats) -> int:
-    """Wait for the oldest in-flight batch and encode it.
-
-    A device OOM that surfaces here is handled like one at submit time:
-    the retained host copy goes through the synchronous bisection."""
-    (pending, padded, chunk_n, start, ids) = in_flight.popleft()
-    with timer.stage("device"):
-        try:
-            with span("batch.wait", *ids):
-                enhanced = pending.result()
-            ok_batch = padded.shape[0]
-            stats["device_ms"] += pending.device_ms()
-        except RuntimeError as exc:
-            if not _is_oom(exc):
-                raise
-            enhanced, ok_batch = process_with_retry(
-                padded, settings, out_h, out_w, start, device=device,
-                mesh=mesh, as_uint8=True)
-    stats["batches"] += 1
-    with timer.stage("encode"):
-        write(enhanced[:chunk_n])
-    return max(1, min(smallest_batch, ok_batch))
-
-
 def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
                     settings: EnhancerSettings, out_h: int, out_w: int, *,
                     device, batch_size: int, mesh=None,
@@ -460,35 +390,46 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
     The device is fed in chunks of the current OOM-proven batch size, so
     each batch triggers at most one bisection per job (the reference reads
     ``min(smallest_batch, remaining)`` per step,
-    ``VRGDG_StandaloneVideoEnhancerNodes.py:410-418``).  Short chunks are
-    padded to that size by repeating the last frame, then trimmed.  Chunks
-    flow through a submit/force FIFO of ``VRGDG_DISPATCH_DEPTH`` (default
-    2): upload and compute of one batch overlap download and encode of the
-    one before; order and bytes are unchanged.  On an OOM at submit, the
-    older chunks in flight are written first, then this one is bisected.
+    ``VRGDG_StandaloneVideoEnhancerNodes.py:410-418``), each at its own
+    length, through the FIFO of :mod:`vrgdg_tpu_torch.runtime.batch_stream`:
+    upload and compute of one batch overlap download and encode of the one
+    before.  On an OOM at submit, the older chunks in flight are written
+    first, then this one is bisected.
 
     ``mesh`` (from :func:`mesh_for_settings`) spreads each batch over its
     cards.  ``on_batch(count, frames_done, smallest_batch)`` runs after each
-    decoded batch is submitted; ``stats`` (optional) receives ``batches``
-    and ``device_ms`` (CUDA-event time, upload to download, summed)."""
+    decoded batch is submitted; ``stats`` (optional) is filled as
+    :class:`~vrgdg_tpu_torch.runtime.batch_stream.InFlight` says."""
     timer = timer or StageTimer()
-    stats = {} if stats is None else stats
-    stats.update(batches=0, device_ms=0.0)
-    depth = max(1, int(os.environ.get("VRGDG_DISPATCH_DEPTH") or 2))
+    lead = mesh.lead if mesh is not None else resolve_device(device)
+    in_flight = InFlight(dispatch_depth(), stats, lead)
     smallest_batch = max(1, int(batch_size))
     frames_done = 0
-    in_flight: deque = deque()
-    stream, submitted = next_stream(), 0
+
+    def retry(chunk: np.ndarray, start: int) -> np.ndarray:
+        nonlocal smallest_batch
+        enhanced, ok_batch = process_with_retry(
+            chunk, settings, out_h, out_w, start, device=device, mesh=mesh,
+            as_uint8=True)
+        smallest_batch = max(1, min(smallest_batch, ok_batch))
+        in_flight.count(len(enhanced))
+        return enhanced
 
     def force() -> None:
-        nonlocal smallest_batch
-        smallest_batch = _force_entry(in_flight, settings, out_h, out_w,
-                                      device, mesh, smallest_batch, timer,
-                                      write, stats)
+        pending, ids, (chunk, start) = in_flight.popleft()
+        with timer.stage("device"):
+            try:
+                enhanced = in_flight.wait(pending, ids)
+            except RuntimeError as exc:
+                if not _is_oom(exc):
+                    raise
+                enhanced = retry(chunk, start)
+        with timer.stage("encode"):
+            write(enhanced)
 
     iterator = iter(batches)
     while True:
-        with timer.stage("decode", stream):
+        with timer.stage("decode", in_flight.stream):
             item = next(iterator, None)
         if item is None:
             break
@@ -499,46 +440,30 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
         offset = 0
         while offset < count:
             chunk = frames[offset:offset + smallest_batch]
-            chunk_n = chunk.shape[0]
-            padded = chunk
-            ids = (stream, submitted)
-            submitted += 1
-            if chunk_n < smallest_batch:
-                with span("batch.pad", *ids,
-                          pad_frames=smallest_batch - chunk_n):
-                    filler = np.repeat(chunk[-1:], smallest_batch - chunk_n,
-                                       axis=0)
-                    padded = np.concatenate([chunk, filler], axis=0)
-            submit_oom = False
+            start = frame_index + offset
+            offset += len(chunk)
+            ids = in_flight.next_ids()
             with timer.stage("device", *ids):
                 try:
                     pending = submit_effects_batch(
-                        padded, settings, out_h, out_w, frame_index + offset,
-                        device=device, mesh=mesh, as_uint8=True)
-                    in_flight.append((pending, padded, chunk_n,
-                                      frame_index + offset, ids))
+                        chunk, settings, out_h, out_w, start, device=device,
+                        mesh=mesh, as_uint8=True, batch_size=smallest_batch)
                 except RuntimeError as exc:
                     if not _is_oom(exc):
                         raise
-                    submit_oom = True
-            if submit_oom:
-                # Outside the device stage: _force_entry and the write open
-                # their own stages, and StageTimer is a plain accumulator.
-                while in_flight:
+                    pending = None
+            if pending is not None:
+                if in_flight.push(pending, ids, (chunk, start)):
                     force()
-                with timer.stage("device", *ids):
-                    enhanced, ok_batch = process_with_retry(
-                        padded, settings, out_h, out_w, frame_index + offset,
-                        device=device, mesh=mesh, as_uint8=True)
-                smallest_batch = max(1, min(smallest_batch, ok_batch))
-                stats["batches"] += 1
-                with timer.stage("encode"):
-                    write(enhanced[:chunk_n])
-                offset += chunk_n
                 continue
-            if len(in_flight) >= depth:
+            # Outside the device stage: force and the write open their own
+            # stages, and StageTimer is a plain accumulator.
+            while in_flight:
                 force()
-            offset += chunk_n
+            with timer.stage("device", *ids):
+                enhanced = retry(chunk, start)
+            with timer.stage("encode"):
+                write(enhanced)
         frames_done += count
         if on_batch is not None:
             on_batch(count, frames_done, smallest_batch)

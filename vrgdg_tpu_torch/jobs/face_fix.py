@@ -43,8 +43,8 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..api.appliers import resolve_device
 from ..runtime import video_io
+from ..runtime.batch_stream import resolve_device
 from ..runtime.profiling import StageTimer
 
 DetectorFn = Callable[[np.ndarray, tuple[int, int, int, int]],

@@ -39,9 +39,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..api.appliers import resolve_device
 from ..ops.paste_back import radial_face_composite
 from ..ops.resize import resample
+from ..runtime.batch_stream import resolve_device
 from .face_fix import (DetectorFn, ENHANCE_SIZE, detect_with_rotation,
                        distance_repair_strength, initial_regions,
                        load_default_detector, select_tracked, smooth_box,

@@ -33,8 +33,8 @@ import shutil
 import numpy as np
 import torch
 
-from ..api.appliers import resolve_device
 from ..ops.resize import resample
+from ..runtime.batch_stream import resolve_device
 
 IMAGE_EXTENSIONS = (".png", ".jpg", ".jpeg", ".webp")
 

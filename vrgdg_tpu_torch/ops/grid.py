@@ -19,6 +19,8 @@ import math
 import numpy as np
 import torch
 
+from ..runtime.batch_stream import resolve_device
+
 LAYOUTS = ("auto_ltx", "uniform_grid", "horizontal_strip", "vertical_strip",
            "wide_bottom", "six_panel_story", "three_row_reference",
            "aspect_rows")
@@ -263,8 +265,6 @@ def build_reference_sheet(images, layout: str = "auto_ltx",
                           device="cuda") -> np.ndarray:
     """Compose a reference sheet from HWC/BHWC [0,1] images; returns a
     ``(1, H, W, 3)`` float32 array (``:337-404``)."""
-    from ..api.appliers import resolve_device
-
     device = resolve_device(device)
     panels = []
     for image in images:
@@ -366,7 +366,6 @@ def build_msr_reference(subjects, background=None, width: int = 736,
     LANCZOS4 resize on ``device``, subjects-then-background order, gray
     placeholder 127.
     """
-    from ..api.appliers import resolve_device
     from .resize import resample
 
     device = resolve_device(device)

@@ -8,11 +8,12 @@ Counterpart of :mod:`vrgdg_tpu.runtime.profiling`:
   ``$VRGDG_TPU_TRACE/<label>/trace.json``.  Every applier wraps its
   device loop in it.
 - :func:`span`: a named range around one piece of a batch stream's work
-  (``batch.pad``, ``batch.stage``, ``batch.enqueue``, ``batch.wait``) and
-  inside the enqueue (``grade.phase1`` / ``grade.stats`` /
-  ``grade.phase2``, the eager stages ``grade.lut`` / ``grade.adjust`` /
-  ``grade.match`` / ``grade.sharpen`` / ``grade.grain``,
-  ``enhance.resample`` / ``enhance.sharpen`` / ``enhance.grain``).  A
+  (:mod:`vrgdg_tpu_torch.runtime.batch_stream`'s ``batch.stage``,
+  ``batch.enqueue``, ``batch.wait``) and inside the enqueue
+  (``grade.phase1`` / ``grade.stats`` / ``grade.phase2``, the eager
+  stages ``grade.lut`` / ``grade.adjust`` / ``grade.match`` /
+  ``grade.sharpen`` / ``grade.grain``, ``enhance.resample`` /
+  ``enhance.sharpen`` / ``enhance.grain``).  A
   span records only while a ``torch.profiler`` records in this process
   (``maybe_trace`` or any other); otherwise it is one check and a shared
   no-op context.  While one records, a span opens a ``record_function``

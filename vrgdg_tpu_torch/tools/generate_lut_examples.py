@@ -63,9 +63,9 @@ def grade_examples(device="cuda") -> dict[str, np.ndarray]:
     bundled ``.cube``, each graded on ``device``."""
     import torch
 
-    from ..api.appliers import resolve_device
     from ..core.cube import GLOBAL_LUT_CACHE, list_lut_files
     from ..ops.lut import apply_lut
+    from ..runtime.batch_stream import resolve_device
 
     device = resolve_device(device)
     frame = torch.from_numpy(test_frame()[None]).to(device)
