@@ -6,8 +6,8 @@
 Phases, one line each (any failure raises and the exit code is not 0):
 
 1. device: the card's name, its ``nvidia-smi`` name and power limit;
-2. build: the four kernel libraries (``grade``, ``grain``, ``lut``,
-   ``probe``)
+2. build: the five kernel libraries (``enhance``, ``grade``, ``grain``,
+   ``lut``, ``probe``)
    compiled from ``kernels/csrc`` with nvcc, all started together, and
    beside them probes of each kernel's per-pixel code, whose
    floating-point ``cuobjdump -sass`` instructions price the operations
@@ -51,7 +51,7 @@ Phases, one line each (any failure raises and the exit code is not 0):
     turned on, its ms per frame beside the tap-gather form's;
 12. enhance path: 48 seeded 1080p uint8 frames through the enhancer's
     submit/force loop to 4K (lanczos4, unsharp 1.0, grain 0.05, seed 42,
-    auto batch 1), with ``film_grain``'s launches (one per batch), fps,
+    auto batch 1), with ``enhance_step``'s launches (one per batch), fps,
     device ms per frame and the breakdown; a batch split is bit-identical
     and a small clip is checked against the CPU path;
 13. enhancer job: ``render_job`` on a generated 72-frame 1080p clip at
@@ -116,7 +116,7 @@ Phases, one line each (any failure raises and the exit code is not 0):
     ``lut_apply`` once a batch; the LUT
     route on a 4K PNG, byte for byte as in process; the enhancer's upload,
     load, preview (one ``film_grain`` launch) and a 1080p -> 4K render of
-    24 frames (one launch a batch) against an in-process ``start_render``,
+    24 frames (one ``enhance_step`` launch a batch) against an in-process ``start_render``,
     the media route and an unknown job's 404; a second render with the
     fused grade sent from another request thread while it runs, both
     outputs as their lone runs; ``compare/video`` side_by_side and
@@ -212,7 +212,13 @@ Phases, one line each (any failure raises and the exit code is not 0):
     both beside the bytes term of its bound and its L2 gather (96 bytes a
     pixel, in GB and at the rate the kernel reached); then Apply LUT's
     stream (``_lut_effect`` through the appliers' generator) on 17 frames
-    of 1080p at batch 8, one launch a batch.
+    of 1080p at batch 8, one launch a batch;
+24. the enhancer's fused step: ``enhance_step`` against the torch chain
+    it replaces (dequantize -> ``_enhance_step`` -> quantize, on the card)
+    at the benchmark cell's settings, 720p and 1080p -> 4K x 1, at most
+    one level apart on at most 0.1% of values, both timed by CUDA events
+    beside the step's least time (perfbench's ``enhance_step_roofline``),
+    and its peak device memory (under a float32 4K frame).
 
 Each path (5, 7, 8's layout run, 9's probe run, 12, 14, 15, 16's mesh
 runs, 17's grade, enhancer and concurrent requests, 18's, 19's and
@@ -1362,8 +1368,8 @@ def _enhance_checks(device, settings) -> None:
 def enhance_path(device, card: str) -> dict:
     """Phase 12: seeded 1080p uint8 frames streamed through the enhancer's
     submit/force loop (``enhance_batches``) to 4K at the auto batch;
-    returns the ``film_grain`` launches of the timed passes, which must be
-    one per batch."""
+    returns the ``enhance_step`` launches of the timed passes, which must
+    be one per batch (the stream's uint8 batches run the fused step)."""
     from vrgdg_tpu_torch.core.params import EnhancerSettings, auto_batch_size
     from vrgdg_tpu_torch.jobs import enhancer
     from vrgdg_tpu_torch.kernels import build
@@ -1390,19 +1396,19 @@ def enhance_path(device, card: str) -> dict:
         started = time.perf_counter()
         shapes = run_pass(stats)
         wall = time.perf_counter() - started
-        grain = build.LAUNCHES["film_grain"]
+        fused = build.LAUNCHES["enhance_step"]
         frames = sum(s[0] for s in shapes)
         if frames != count or any(s[1:] != (out_h, out_w, 3) for s in shapes):
             raise AssertionError(f"enhance path returned {frames} frames of "
                                  f"shapes {set(shapes)}")
-        if grain != len(source):
-            raise AssertionError(f"enhance path launched film_grain {grain} "
+        if fused != len(source) or build.LAUNCHES["film_grain"]:
+            raise AssertionError(f"enhance path launched enhance_step {fused} "
                                  f"times over {len(source)} batches")
-        launches += grain
+        launches += fused
         fps.append(count / wall)
         device_ms.append(stats["device_ms"] / count)
     _say("enhance-path", frames=count, size=f"{src_h}x{src_w}->{out_h}x{out_w}",
-         batch=batch, passes=TIMED_PASSES, film_grain_launches_per_pass=grain,
+         batch=batch, passes=TIMED_PASSES, enhance_step_launches_per_pass=fused,
          batches_per_pass=len(source),
          wall_fps=",".join(f"{v:.2f}" for v in fps),
          median_wall_fps=f"{float(np.median(fps)):.2f}",
@@ -1410,7 +1416,7 @@ def enhance_path(device, card: str) -> dict:
          card=f"'{card}'")
     breakdown(run_pass, count)
     torch.cuda.empty_cache()
-    return {"film_grain": launches}
+    return {"enhance_step": launches}
 
 
 def _write_clip(path: str, frames: int, fps: float, width: int, height: int,
@@ -2760,7 +2766,7 @@ def _server_enhancer(srv, device, folder, clip) -> tuple[dict, dict, dict]:
         return _wait_job(srv, started["job"]["job_id"])
 
     job, counts = _counted(render)
-    _expect("render by request", counts, {"film_grain": batches})
+    _expect("render by request", counts, {"enhance_step": batches})
     _add(launches, counts)
     srv.call("GET", "/vrgdg/video_enhancer/render/status",
              params={"job_id": job["job_id"]}, job_status=job["status"],
@@ -2849,7 +2855,7 @@ def _server_concurrent(srv, folder, grade, graded, render, rendered) -> dict:
     batches = -(-SERVER_GRADE_CLIP[0] // SERVER_GRADE_BATCH)
     _expect("render and grade at once", counts,
             {"grade_phase1": batches, "grade_phase2": batches,
-             "film_grain": _render_batches()})
+             "enhance_step": _render_batches()})
     if states["render_before"] == "complete":
         raise AssertionError("the render ended before the grade started")
     _same_frames("concurrent grade vs alone", out, graded)
@@ -5363,6 +5369,79 @@ def lut_phase(device, card: str, reps=10) -> tuple[float, tuple, dict]:
     return 0.0, timed, launches
 
 
+# phase 24: the enhancer's fused step at the benchmark's settings
+# (perfbench/configs/enhance_4k.json), 720p and 1080p to 4K, one frame
+ENHANCE_CELL = dict(upscale_resolution="4k", sharpen_strength=0.5,
+                    grain_enabled=True, grain_intensity=0.04,
+                    saturation_mix=0.5, seed=42, use_accelerator=True)
+ENHANCE_KERNEL_SIZES = (((720, 1280), (2160, 3840)),
+                        ((1080, 1920), (2160, 3840)))
+
+
+def _enhance_least_ms(src, dst) -> tuple[float, str]:
+    """The enhance step's least time (perfbench's enhance_step_roofline):
+    uint8 in and out at the HBM peak, or Lanczos-4's 8 taps a sample in
+    the cheaper pass order at the float32 peak, whichever is longer."""
+    (sh, sw), (dh, dw) = src, dst
+    nbytes = 3 * (sh * sw + dh * dw)
+    flops = 2 * 8 * 3 * min(dh * sw + dh * dw, sh * dw + dh * dw)
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / FP32_OPS_PER_S * 1e3}
+    bound_by = max(terms, key=terms.get)
+    return terms[bound_by], bound_by
+
+
+def enhance_kernel_phase(device, card: str, reps=20) -> None:
+    """Phase 24: ``enhance_step`` against the torch chain it replaces on
+    the card (dequantize -> ``_enhance_step`` -> quantize; at most one
+    level apart on at most 0.1% of values) at 720p and 1080p -> 4K x 1,
+    both timed by CUDA events beside the step's least time, and the fused
+    step's peak device memory (no float32 4K frame)."""
+    from vrgdg_tpu_torch.core.params import EnhancerSettings
+    from vrgdg_tpu_torch.jobs import enhancer
+    from vrgdg_tpu_torch.kernels import enhance_cuda
+    from vrgdg_tpu_torch.runtime import video_io
+
+    settings = EnhancerSettings.normalize(ENHANCE_CELL)
+    for index, (src, dst) in enumerate(ENHANCE_KERNEL_SIZES):
+        generator = torch.Generator(device="cpu").manual_seed(250 + index)
+        frames = torch.randint(0, 256, (1, *src, 3), dtype=torch.uint8,
+                               generator=generator).to(device)
+
+        def kernel():
+            return enhancer._enhance_step_uint8(frames, settings, *dst, 0)
+
+        def chain():
+            return video_io.quantize_on_device(enhancer._enhance_step(
+                video_io.dequantize_on_device(frames), settings, *dst, 0))
+
+        got, want = kernel(), chain()
+        diff = (got.int() - want.int()).abs()
+        share = float((diff > 0).float().mean())
+        if int(diff.max()) > 1 or share > 1e-3:
+            raise AssertionError(f"enhance_step vs the chain at {src}: max "
+                                 f"{int(diff.max())} levels, {share:.2e}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+        kernel()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - before
+        if peak >= 4 * got.numel():
+            raise AssertionError(f"the fused step allocated {peak} bytes")
+        kernel_ms, chain_ms = _timed_pair(kernel, chain, reps)
+        least_ms, bound_by = _enhance_least_ms(src, dst)
+        _say("enhance-kernel", size=f"{_label(src)}->{_label(dst)}x1",
+             vs_chain=f"max_{int(diff.max())}_share_{share:.2e}",
+             enhance_step_ms=f"{kernel_ms:.4f}", chain_ms=f"{chain_ms:.4f}",
+             least_ms=f"{least_ms:.5f}", bound_by=bound_by,
+             share_of_bound=f"{100 * least_ms / kernel_ms:.2f}%",
+             tile_h=enhance_cuda.plan(*src, *dst)[0],
+             peak_bytes=peak, card=f"'{card}'")
+        del frames, got, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5421,7 +5500,7 @@ def main() -> int:
     launches.update(probe_launches)
     file_phase(device, config, lut)
     resample_phase(device)
-    launches["film_grain"] += enhance_path(device, card)["film_grain"]
+    _add(launches, enhance_path(device, card))
     enhancer_job(device)
     _add(launches, images_and_compare(device))
     face_repair_and_secondary_ops(device)
@@ -5440,6 +5519,7 @@ def main() -> int:
     errors["lut_apply"], times["lut_apply"], lut_launches = lut_phase(
         device, card)
     _add(launches, lut_launches)
+    enhance_kernel_phase(device, card)
 
     for name in SOURCES:
         if launches.get(name, 0) == 0:

@@ -99,7 +99,8 @@ def test_kernels_match_plain_versions():
     assert gc.LAUNCHES == {"grade_phase1": 1, "grade_phase2": 1,
                            "grade_phase1_planes": 0,
                            "grade_phase2_planes": 0, "film_grain": 0,
-                           "weighted_row_sum": 0, "lut_apply": 0}
+                           "weighted_row_sum": 0, "lut_apply": 0,
+                           "enhance_step": 0}
     assert float((got - want).abs().max()) <= 5e-5
 
 
@@ -420,9 +421,9 @@ def test_batch_streams_record_their_spans_on_the_card():
                             {"frames": 1, "short_frames": 1}]
         assert sum(c["frames"] for c in enqueued) == 5
         enqueues = {r.id for r in by["batch.enqueue"]}
+        # the enhancer's uint8 batches run as one enhance_step launch
         children = (("grade.phase1", "grade.stats", "grade.phase2")
-                    if "grade.phase1" in by else
-                    ("enhance.resample", "enhance.sharpen", "enhance.grain"))
+                    if "grade.phase1" in by else ("enhance.step",))
         for name in children:
             assert len(by[name]) == 3 and all(
                 r.parent in enqueues for r in by[name]), name
@@ -466,6 +467,9 @@ def test_unpadded_tail_batches_match_batch_one_at_full_size(height, width,
 
 @pytest.mark.cuda
 def test_enhance_stream_launches_film_grain_once_per_batch():
+    """The stream's uint8 batches run the whole step as one
+    ``enhance_step`` launch a batch, which draws the grain itself:
+    ``film_grain`` is not launched."""
     device = _card()
     u8 = np.random.default_rng(12).integers(0, 256, (5, 40, 70, 3), np.uint8)
     batches = [(0, u8[0:2]), (2, u8[2:4]), (4, u8[4:5])]
@@ -474,7 +478,8 @@ def test_enhance_stream_launches_film_grain_once_per_batch():
     done, smallest = enhancer.enhance_batches(
         batches, ENHANCE, 90, 160, device=device, batch_size=2,
         write=written.append)
-    assert gc.LAUNCHES["film_grain"] == 3
+    assert gc.LAUNCHES["enhance_step"] == 3
+    assert gc.LAUNCHES["film_grain"] == 0
     assert (done, smallest) == (5, 2)
     assert [w.shape for w in written] == [(2, 90, 160, 3), (2, 90, 160, 3),
                                           (1, 90, 160, 3)]

@@ -15,13 +15,19 @@ Counterpart of :mod:`vrgdg_tpu.jobs.enhancer`, with the same semantics:
   live handles (``:20-23, 327-340, 658-711``),
 - preview endpoint math (``:714-753``).
 
-The device step (:func:`_enhance_step`) is lanczos4 resample (two dense
-float32 products per frame, :mod:`vrgdg_tpu_torch.ops.resize`) -> clamp ->
-unsharp -> seeded grain.  The grain goes through
-:func:`~vrgdg_tpu_torch.kernels.grain_cuda.film_grain_kernel`: the
+The device step is dequantize -> lanczos4 resample -> clamp -> unsharp ->
+seeded grain -> quantize.  On a card, for a uint8 batch that comes back as
+uint8 and is not split by height, it is one launch of the ``enhance_step``
+CUDA kernel (:func:`_enhance_step_uint8`,
+:mod:`vrgdg_tpu_torch.kernels.enhance_cuda`): uint8 in and out, no float32
+frame at the output size in device memory.  Everywhere else (the CPU, the
+float-output path such as :func:`preview_frame`, height shards) it is the
+torch chain :func:`_enhance_step`: two dense float32 products per frame
+(:mod:`vrgdg_tpu_torch.ops.resize`), then the grain through
+:func:`~vrgdg_tpu_torch.kernels.grain_cuda.film_grain_kernel`, the
 ``film_grain`` CUDA kernel on a card (it raises if it cannot build or
-launch), its plain version on the CPU; both draw the port's one Philox
-stream.  Batches, each at its own length, go through the streamed batch
+launch) and its plain version on the CPU.  Both paths draw the port's one
+Philox stream.  Batches, each at its own length, go through the streamed batch
 the grade also runs on (:mod:`vrgdg_tpu_torch.runtime.batch_stream`), up
 to ``VRGDG_DISPATCH_DEPTH`` (default 2) in flight.  An out-of-memory error
 surfaces when torch allocates, that is when a batch is submitted; both
@@ -54,6 +60,7 @@ import numpy as np
 import torch
 
 from ..core.params import EnhancerSettings, auto_batch_size, output_dimensions
+from ..kernels import enhance_cuda
 from ..kernels.grain_cuda import film_grain_kernel
 from ..ops.resize import lanczos_support, resample, resample_rows
 from ..ops.sharpen import unsharp
@@ -98,27 +105,54 @@ def jobs_folder(base: str | None = None) -> str:
 # Device pipeline
 # --------------------------------------------------------------------------
 
+def _effects(settings: EnhancerSettings) -> tuple[float, str, float]:
+    """``(sharpen strength, border, grain intensity)`` of the step; a
+    strength or intensity of 0 leaves its stage out.  use_accelerator maps
+    to the reference's use_gpu border convention (zero-padded avg_pool on
+    GPU, edge-replicate on CPU) so outputs are comparable for equal
+    settings."""
+    sharpen = (float(settings.sharpen_strength) if settings.sharpen_enabled
+               and settings.sharpen_strength > 0 else 0.0)
+    grain = (float(settings.grain_intensity) if settings.grain_enabled
+             and settings.grain_intensity > 0 else 0.0)
+    return sharpen, "zero" if settings.use_accelerator else "edge", grain
+
+
 def _enhance_step(frames: torch.Tensor, settings: EnhancerSettings,
                   out_height: int, out_width: int,
                   frame_start: int) -> torch.Tensor:
-    """Resize (lanczos4) -> unsharp -> seeded grain on ``frames``' device."""
+    """Resize (lanczos4) -> unsharp -> seeded grain on ``frames``' device,
+    float in and float out: the torch chain, spans ``enhance.resample``,
+    ``enhance.sharpen`` and ``enhance.grain``."""
+    sharpen, border, grain = _effects(settings)
     with span("enhance.resample"):
         out = torch.clamp(resample(frames, out_height, out_width,
                                    "lanczos4"), 0.0, 1.0)
-    if settings.sharpen_enabled and settings.sharpen_strength > 0:
-        # use_accelerator maps to the reference's use_gpu border convention
-        # (zero-padded avg_pool on GPU, edge-replicate on CPU) so outputs
-        # are comparable for equal settings.
-        border = "zero" if settings.use_accelerator else "edge"
+    if sharpen:
         with span("enhance.sharpen"):
-            out = unsharp(out, settings.sharpen_strength, border)
-    if settings.grain_enabled and settings.grain_intensity > 0:
+            out = unsharp(out, sharpen, border)
+    if grain:
         with span("enhance.grain"):
-            out = film_grain_kernel(out.contiguous(),
-                                    settings.grain_intensity,
+            out = film_grain_kernel(out.contiguous(), grain,
                                     settings.saturation_mix, settings.seed,
                                     frame_start=frame_start)
     return out
+
+
+def _enhance_step_uint8(frames: torch.Tensor, settings: EnhancerSettings,
+                        out_height: int, out_width: int,
+                        frame_start: int) -> torch.Tensor:
+    """The whole step on a card's uint8 batch, uint8 out: one launch of
+    the ``enhance_step`` kernel under the span ``enhance.step`` (counter
+    ``frames``, timed by CUDA events while a profiler records)."""
+    sharpen, border, grain = _effects(settings)
+    with span("enhance.step", device=frames.device,
+              frames=int(frames.shape[0])):
+        return enhance_cuda.enhance_step(
+            frames.contiguous(), out_height, out_width,
+            sharpen_strength=sharpen, border=border, grain_intensity=grain,
+            saturation_mix=settings.saturation_mix, seed=settings.seed,
+            frame_start=frame_start)
 
 
 def _enhance_rows(shards: HeightShards, settings: EnhancerSettings,
@@ -137,15 +171,15 @@ def _enhance_rows(shards: HeightShards, settings: EnhancerSettings,
         tiles.append(torch.clamp(resample_rows(
             window, src_h, lo, start, stop, out_height, out_width), 0.0, 1.0))
     out = HeightShards(tiles, starts)
-    if settings.sharpen_enabled and settings.sharpen_strength > 0:
-        border = "zero" if settings.use_accelerator else "edge"
+    sharpen, border, grain = _effects(settings)
+    if sharpen:
         out = out.stencil(1, lambda x, rows: unsharp(
-            x, settings.sharpen_strength, border, rows=rows))
-    if settings.grain_enabled and settings.grain_intensity > 0:
+            x, sharpen, border, rows=rows))
+    if grain:
         out = out.map(lambda tile, rows: film_grain_kernel(
-            tile.contiguous(), settings.grain_intensity,
-            settings.saturation_mix, settings.seed, frame_start=frame_start,
-            row_start=rows.start, frame_height=rows.height))
+            tile.contiguous(), grain, settings.saturation_mix,
+            settings.seed, frame_start=frame_start, row_start=rows.start,
+            frame_height=rows.height))
     return out
 
 
@@ -234,8 +268,11 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
     ``frames`` is a BHWC uint8 (or float32 [0,1]) host batch, run by
     :func:`~vrgdg_tpu_torch.runtime.batch_stream.submit`: dequantized,
     enhanced and quantized when ``as_uint8`` (4x less to download;
-    bit-identical to quantizing on the host).  ``batch_size``: the
-    stream's, for the ``short_frames`` count of ``batch.enqueue``.
+    bit-identical to quantizing on the host).  A uint8 batch on a card
+    with ``as_uint8`` runs as one ``enhance_step`` launch
+    (:func:`_enhance_step_uint8`); any other batch, and height shards, run
+    the torch chain.  ``batch_size``: the stream's, for the
+    ``short_frames`` count of ``batch.enqueue``.
 
     With ``mesh`` the batch runs over the mesh's cards instead
     (:func:`_submit_on_mesh`: padded to divide its data axis, on the host,
@@ -249,9 +286,13 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
         return video_io.quantize_on_device(out) if as_uint8 else out
 
     def step(on_device: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        start = int(frame_start) + offset
+        if (as_uint8 and on_device.dtype == torch.uint8
+                and on_device.device.type == "cuda"):
+            return _enhance_step_uint8(on_device, settings, int(out_height),
+                                       int(out_width), start)
         out = _enhance_step(video_io.dequantize_on_device(on_device),
-                            settings, int(out_height), int(out_width),
-                            int(frame_start) + offset)
+                            settings, int(out_height), int(out_width), start)
         return finish(out)
 
     def spatial_step(shards: HeightShards, offset: int) -> HeightShards:

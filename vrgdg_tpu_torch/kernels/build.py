@@ -4,8 +4,8 @@ The sources under ``kernels/csrc/`` have a plain C interface (raw device
 pointers, shapes, scalars and a ``cudaStream_t``), so they compile in
 seconds without PyTorch's headers and bind through :mod:`ctypes`; no
 ``ninja`` and no ``torch.utils.cpp_extension`` are needed.  Each ``.cu``
-builds into a library of its own (``grade``, ``grain``, ``lut``,
-``probe``), one ``nvcc`` process per source, all started together at first
+builds into a library of its own (``enhance``, ``grade``, ``grain``,
+``lut``, ``probe``), one ``nvcc`` process per source, all started together at first
 use, into ``kernels/_build/`` under a name that carries a hash of the
 source, the shared headers and the flags, so an edited source rebuilds.
 ``ptxas -v`` output (registers, shared memory, spills per kernel) is kept
@@ -44,7 +44,8 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 # launches per kernel, by the name each wrapper counts under
 LAUNCHES = {name: 0 for name in (
     "grade_phase1", "grade_phase2", "grade_phase1_planes",
-    "grade_phase2_planes", "film_grain", "weighted_row_sum", "lut_apply")}
+    "grade_phase2_planes", "film_grain", "weighted_row_sum", "lut_apply",
+    "enhance_step")}
 
 
 class KernelBuildError(RuntimeError):
@@ -139,6 +140,11 @@ def _bind(stem: str, lib: ctypes.CDLL) -> None:
     lib.vrgdg_cuda_error_string.argtypes = [i32]
     lib.vrgdg_cuda_error_string.restype = ctypes.c_char_p
     signatures = {
+        "enhance": {
+            "vrgdg_enhance_step": [i32, ptr, i32, i32, i32, ptr, ptr, ptr,
+                                   i32, ptr, ptr, ptr, i32, i32, i32, i32,
+                                   i32, f32, f32, f32, f32, u32, ptr, ptr],
+        },
         "grade": {
             "vrgdg_grade_phase1": [i32, ptr, ptr, i32, ptr, f32, f32, i32,
                                    AdjustParams, i32, i32, i32, ptr, ptr,

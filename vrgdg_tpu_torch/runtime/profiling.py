@@ -12,8 +12,9 @@ Counterpart of :mod:`vrgdg_tpu.runtime.profiling`:
   ``batch.enqueue``, ``batch.wait``) and inside the enqueue
   (``grade.phase1`` / ``grade.stats`` / ``grade.phase2``, the eager
   stages ``grade.lut`` / ``grade.adjust`` / ``grade.match`` /
-  ``grade.sharpen`` / ``grade.grain``, ``enhance.resample`` /
-  ``enhance.sharpen`` / ``enhance.grain``).  A
+  ``grade.sharpen`` / ``grade.grain``, the enhancer's ``enhance.step``
+  on a card's uint8 batch and its torch chain's ``enhance.resample`` /
+  ``enhance.sharpen`` / ``enhance.grain`` everywhere else).  A
   span records only while a ``torch.profiler`` records in this process
   (``maybe_trace`` or any other); otherwise it is one check and a shared
   no-op context.  While one records, a span opens a ``record_function``
