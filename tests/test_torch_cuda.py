@@ -383,7 +383,10 @@ def test_batch_streams_record_their_spans_on_the_card():
     """Under ``torch.profiler`` (CPU and CUDA) both streams record each
     batch's pinned staging, enqueue and wait, the fused phases and the
     enhance step's parts under the enqueue, and the ``vrgdg.*`` ranges
-    land in the trace beside the device's work.  Both run their tail
+    land in the trace beside the device's work.  Each batch is staged one
+    ahead on native threads, so its ``batch.stage`` is logged from the
+    copy's own times with no range in the trace, and the stream's wait
+    for it is the range ``vrgdg.batch.stage_wait``.  Both run their tail
     batch at its real length (no pad; the tail's enqueue counts the
     ``short_frames`` it lacks)."""
     from torch.profiler import ProfilerActivity, profile
@@ -413,8 +416,10 @@ def test_batch_streams_record_their_spans_on_the_card():
         by = {}
         for record in mine:
             by.setdefault(record.name, []).append(record)
-        for name in ("batch.stage", "batch.enqueue", "batch.wait"):
+        for name in ("batch.stage", "batch.stage_wait", "batch.enqueue",
+                     "batch.wait"):
             assert [r.batch for r in by[name]] == [0, 1, 2], name
+        assert all(r.parent is None for r in by["batch.stage"])
         enqueued = [r.counts for r in by["batch.enqueue"]]
         assert "batch.pad" not in by
         assert enqueued == [{"frames": 2}, {"frames": 2},
@@ -428,7 +433,7 @@ def test_batch_streams_record_their_spans_on_the_card():
             assert len(by[name]) == 3 and all(
                 r.parent in enqueues for r in by[name]), name
             assert "vrgdg." + name in names
-    assert {"vrgdg.batch.stage", "vrgdg.batch.wait"} <= names
+    assert {"vrgdg.batch.stage_wait", "vrgdg.batch.wait"} <= names
 
 
 @pytest.mark.cuda

@@ -14,6 +14,13 @@ on the CPU.
 - ``enhance_batches`` over the same clip: the same rule (no ``batch.pad``,
   the tail's enqueue counts its ``short_frames``, no staging or wait on
   the CPU), the step's parts under each enqueue.
+- Staging ahead (``batch_stream.look_ahead`` with a scripted stager): each
+  take is a ``batch.stage_wait`` counting ``ready``, and each staging is
+  logged as a ``batch.stage`` from the copy's own times
+  (``profiling.log_span``, which logs only while a profiler records).  On
+  a card (marked ``cuda``): both streams' ``batch.stage`` once a batch
+  with their ids, before the batch's enqueue, and their
+  ``batch.stage_wait``.
 - ``stage_seconds`` keeps exactly its keys with the profiler on.
 - The log drops its oldest records at its bound and counts them.
 """
@@ -29,22 +36,24 @@ from vrgdg_tpu_torch.core.cube import build_palette_lut
 from vrgdg_tpu_torch.core.params import EnhancerSettings
 from vrgdg_tpu_torch.jobs.enhancer import enhance_batches
 from vrgdg_tpu_torch.ops.color_match import lab_statistics
-from vrgdg_tpu_torch.runtime import profiling
+from vrgdg_tpu_torch.runtime import batch_stream, profiling
+from vrgdg_tpu_torch.runtime.batch_stream import InFlight, look_ahead
 from vrgdg_tpu_torch.runtime.profiling import (SPANS, SpanLog, SpanRecord,
-                                               StageTimer, span)
+                                               StageTimer, log_span, span)
 
 CLIP = np.random.default_rng(3).integers(0, 256, (5, 12, 20, 3), np.uint8)
 BATCHES = [(0, CLIP[0:2]), (2, CLIP[2:4]), (4, CLIP[4:5])]
 
 
-def _profiler():
-    return profile(activities=[ProfilerActivity.CPU])
+def _profiler(cuda: bool = False):
+    return profile(activities=[ProfilerActivity.CPU]
+                   + ([ProfilerActivity.CUDA] if cuda else []))
 
 
-def _recorded(fn):
+def _recorded(fn, cuda: bool = False):
     """The span records ``fn()`` adds, and the profiler's event names."""
     before = {record.id for record in SPANS}
-    with _profiler() as prof:
+    with _profiler(cuda) as prof:
         fn()
     return ([record for record in SPANS if record.id not in before],
             {event.name for event in prof.events()})
@@ -134,15 +143,15 @@ def test_span_open_across_a_yield_keeps_the_stack_straight():
     assert profiling._open.stack == []
 
 
-def _fused_effect():
+def _fused_effect(device="cpu"):
     lut = build_palette_lut("#0b1d51, #1f6aa5, #f3d27a", 9)
     reference = torch.from_numpy(np.random.default_rng(4).uniform(
         0, 1, (1, 8, 10, 3)).astype(np.float32))
-    ref_stats = lab_statistics(reference)
+    ref_stats = lab_statistics(reference.to(device))
     config = grade_config(lut=lut, lut_strength=8, ref_stats=ref_stats,
                           match_strength=0.7, sharpen_strength=1.5,
                           grain_intensity=0.05, seed=42, fused_mode="fused")
-    return grade_effect(config, "cpu", lut=lut, ref_stats=ref_stats)
+    return grade_effect(config, device, lut=lut, ref_stats=ref_stats)
 
 
 def test_grade_stream_counts_pad_and_enqueued_frames():
@@ -219,6 +228,110 @@ def test_enhance_batches_records_an_enqueue_a_batch():
         assert len(by[name]) == 3
         assert all(r.parent in enqueue_ids for r in by[name])
     assert set(timer.seconds()) == {"decode", "device", "encode"}
+
+
+class _Scripted:
+    """A stager whose copies are ready as scripted and take known times."""
+
+    def __init__(self, ready):
+        self.ready_at = list(ready)
+        self.started = 0
+
+    def start(self, frames):
+        self.frames = frames
+
+    def ready(self):
+        return self.ready_at.pop(0)
+
+    def finish(self):
+        self.started += 1
+        return self.frames, 1000 * self.started, 1000 * self.started + 400
+
+    def close(self):
+        pass
+
+
+def test_staging_ahead_logs_its_stage_and_stage_wait_spans(monkeypatch):
+    """Each take of a batch staged ahead is a ``batch.stage_wait``
+    counting ``ready``, and its staging is logged as a ``batch.stage``
+    from the copy's own times, with the batch's ids and no parent (it ran
+    on native threads); with the profiler off nothing is logged."""
+    monkeypatch.setattr(batch_stream, "Stager", lambda threads, device:
+                        _Scripted([False, True, True]))
+
+    def run():   # a stream on a card, which nothing here touches
+        in_flight = InFlight(2, None, torch.device("cuda"))
+        with span("decode", in_flight.stream):
+            for _ in look_ahead(BATCHES, in_flight):
+                in_flight.next_ids()   # as a stream submits it
+
+    records, names = _recorded(run)
+    by = _by_name(records)
+    stages, waits = by["batch.stage"], by["batch.stage_wait"]
+    assert [r.batch for r in stages] == [r.batch for r in waits] == [0, 1, 2]
+    assert len({r.stream for r in stages + waits}) == 1
+    assert [(r.start_ns, r.end_ns) for r in stages] == [
+        (1000, 1400), (2000, 2400), (3000, 3400)]
+    assert all(r.parent is None and r.counts == {} for r in stages)
+    assert [r.counts for r in waits] == [{"ready": 0}, {"ready": 1},
+                                         {"ready": 1}]
+    assert all(r.parent == by["decode"][0].id for r in waits)
+    assert "vrgdg.batch.stage_wait" in names
+    before = (len(SPANS), SPANS.dropped)
+    run()
+    assert (len(SPANS), SPANS.dropped) == before
+
+
+@pytest.mark.cuda
+def test_staged_ahead_streams_record_their_spans_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    device = torch.device("cuda")
+    u8 = np.random.default_rng(5).integers(0, 256, (5, 40, 70, 3), np.uint8)
+    batches = [(0, u8[0:2]), (2, u8[2:4]), (4, u8[4:5])]
+    settings = EnhancerSettings.normalize({
+        "sharpen_strength": 1.0, "grain_enabled": True,
+        "grain_intensity": 0.05, "seed": 42})
+    written: list = []
+
+    def run():
+        graded = list(stream_graded_batches(
+            batches, _fused_effect(device), batch_size=2, device=device))
+        assert sum(g.shape[0] for g in graded) == 5
+        enhance_batches(batches, settings, 80, 140, device=device,
+                        batch_size=2, write=written.append)
+
+    records, names = _recorded(run, cuda=True)
+    assert sum(w.shape[0] for w in written) == 5
+    streams = {r.stream for r in records if r.name == "batch.enqueue"}
+    assert len(streams) == 2
+    for stream in streams:
+        by = _by_name([r for r in records if r.stream == stream])
+        for name in ("batch.stage", "batch.stage_wait", "batch.enqueue",
+                     "batch.wait"):
+            assert [r.batch for r in by[name]] == [0, 1, 2], name
+        # staged on the worker, before the batch's enqueue opened
+        assert all(r.parent is None for r in by["batch.stage"])
+        for staged, enqueued in zip(by["batch.stage"], by["batch.enqueue"]):
+            assert staged.end_ns <= enqueued.start_ns
+        assert all(set(r.counts) == {"ready"} and r.counts["ready"] in (0, 1)
+                   for r in by["batch.stage_wait"])
+    assert "vrgdg.batch.stage_wait" in names
+
+
+def test_log_span_logs_only_while_the_profiler_records():
+    before = (len(SPANS), SPANS.dropped)
+    log_span("batch.stage", 5, 9, 3, 4)
+    assert (len(SPANS), SPANS.dropped) == before
+
+    def run():
+        with span("device", 3, 4):
+            log_span("batch.stage", 5, 9, 3, 4)
+
+    records, _ = _recorded(run)
+    logged = [r for r in records if r.name == "batch.stage"]
+    assert [(r.start_ns, r.end_ns, r.stream, r.batch, r.parent, r.counts)
+            for r in logged] == [(5, 9, 3, 4, None, {})]
 
 
 def test_stage_seconds_keeps_its_keys_with_the_profiler_on():

@@ -128,9 +128,12 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
     length, is uploaded, dequantized, run, quantized and downloaded by
     :mod:`~vrgdg_tpu_torch.runtime.batch_stream` with up to
     ``dispatch_depth`` in flight, so host decode and encode overlap device
-    work.  ``stats`` (optional) receives ``frames``, ``batches`` and, on
-    CUDA, ``device_ms``; the batch spans nest under ``timer``'s ``device``
-    stage."""
+    work; on CUDA at a depth of 2 or more each batch is staged one ahead
+    on native threads
+    (:func:`~vrgdg_tpu_torch.runtime.batch_stream.look_ahead`), and the
+    wait for it is part of ``decode``.  ``stats`` (optional) receives
+    ``frames``, ``batches`` and, on CUDA, ``device_ms``; the batch spans
+    nest under ``timer``'s ``device`` stage."""
     device = resolve_device(device)
     timer = timer or profiling.StageTimer()
     in_flight = batch_stream.InFlight(dispatch_depth, stats, device)
@@ -144,22 +147,23 @@ def stream_graded_batches(batches: Iterable[tuple[int, np.ndarray]],
         pending, ids, _ = in_flight.popleft()
         return in_flight.wait(pending, ids)
 
-    iterator = iter(batches)
-    while True:
-        with timer.stage("decode", stream):
-            item = next(iterator, None)
-        if item is None:
-            break
-        frame_index, batch = item
-        ids = in_flight.next_ids()
-        with timer.stage("device", *ids):
-            pending = batch_stream.submit(batch, step(int(frame_index)),
-                                          device, batch_size)
-            if not in_flight.push(pending, ids):
-                continue
-            out = force()
-        with timer.stage("encode", stream):
-            yield out
+    with contextlib.closing(
+            batch_stream.look_ahead(batches, in_flight)) as pulled:
+        while True:
+            with timer.stage("decode", stream):
+                item = next(pulled, None)
+            if item is None:
+                break
+            ids = in_flight.next_ids()
+            with timer.stage("device", *ids):
+                pending = batch_stream.submit(
+                    item.frames, step(int(item.first)), device, batch_size,
+                    item.pinned)
+                if not in_flight.push(pending, ids):
+                    continue
+                out = force()
+            with timer.stage("encode", stream):
+                yield out
     while in_flight:
         with timer.stage("device", stream):
             out = force()

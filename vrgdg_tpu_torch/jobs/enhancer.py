@@ -48,6 +48,7 @@ that share a job folder.  Not here: the XLA compile cache.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -69,7 +70,8 @@ from ..parallel.mesh import DATA_AXIS, SPACE_AXIS, make_mesh, pad_to_multiple
 from ..parallel.spatial import HeightShards, place, row_starts
 from ..runtime import video_io
 from ..runtime.batch_stream import (InFlight, PendingBatch, dispatch_depth,
-                                    enqueue_counts, resolve_device, submit)
+                                    enqueue_counts, look_ahead,
+                                    resolve_device, submit)
 from ..runtime.profiling import StageTimer, span
 from . import manifest as mf
 
@@ -261,7 +263,8 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
                          out_width: int | None = None,
                          frame_start: int = 0, mesh=None,
                          as_uint8: bool = False, *, device="cuda",
-                         batch_size: int = 0) -> PendingBatch:
+                         batch_size: int = 0,
+                         pinned: torch.Tensor | None = None) -> PendingBatch:
     """Queue the device step on ``device`` (or over ``mesh``) WITHOUT
     waiting for it.
 
@@ -272,7 +275,8 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
     with ``as_uint8`` runs as one ``enhance_step`` launch
     (:func:`_enhance_step_uint8`); any other batch, and height shards, run
     the torch chain.  ``batch_size``: the stream's, for the
-    ``short_frames`` count of ``batch.enqueue``.
+    ``short_frames`` count of ``batch.enqueue``; ``pinned``: ``frames``
+    already staged (see ``submit``; not with ``mesh``).
 
     With ``mesh`` the batch runs over the mesh's cards instead
     (:func:`_submit_on_mesh`: padded to divide its data axis, on the host,
@@ -303,7 +307,8 @@ def submit_effects_batch(frames: np.ndarray, settings: EnhancerSettings,
         return out.map(lambda tile, rows: finish(tile))
 
     if mesh is None:
-        return submit(frames, step, resolve_device(device), batch_size)
+        return submit(frames, step, resolve_device(device), batch_size,
+                      pinned)
     count = int(frames.shape[0])
     with span("batch.enqueue", **enqueue_counts(count, batch_size)):
         host = torch.from_numpy(np.ascontiguousarray(frames))
@@ -434,8 +439,11 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
     ``VRGDG_StandaloneVideoEnhancerNodes.py:410-418``), each at its own
     length, through the FIFO of :mod:`vrgdg_tpu_torch.runtime.batch_stream`:
     upload and compute of one batch overlap download and encode of the one
-    before.  On an OOM at submit, the older chunks in flight are written
-    first, then this one is bisected.
+    before, and on a card each decoded batch is staged one ahead on
+    native threads
+    (:func:`~vrgdg_tpu_torch.runtime.batch_stream.look_ahead`; a chunk is
+    then a slice of its pinned copy).  On an OOM at submit, the
+    older chunks in flight are written first, then this one is bisected.
 
     ``mesh`` (from :func:`mesh_for_settings`) spreads each batch over its
     cards.  ``on_batch(count, frames_done, smallest_batch)`` runs after each
@@ -468,46 +476,54 @@ def enhance_batches(batches: Iterable[tuple[int, np.ndarray]],
         with timer.stage("encode"):
             write(enhanced)
 
-    iterator = iter(batches)
-    while True:
-        with timer.stage("decode", in_flight.stream):
-            item = next(iterator, None)
-        if item is None:
-            break
-        frame_index, frames = item
-        if cancel_event is not None and cancel_event.is_set():
-            raise InterruptedError("Render canceled.")
-        count = frames.shape[0]
-        offset = 0
-        while offset < count:
-            chunk = frames[offset:offset + smallest_batch]
-            start = frame_index + offset
-            offset += len(chunk)
-            ids = in_flight.next_ids()
-            with timer.stage("device", *ids):
-                try:
-                    pending = submit_effects_batch(
-                        chunk, settings, out_h, out_w, start, device=device,
-                        mesh=mesh, as_uint8=True, batch_size=smallest_batch)
-                except RuntimeError as exc:
-                    if not _is_oom(exc):
-                        raise
-                    pending = None
-            if pending is not None:
-                if in_flight.push(pending, ids, (chunk, start)):
+    # the mesh stages on its own (_submit_on_mesh)
+    with contextlib.closing(
+            look_ahead(batches, in_flight, mesh is None)) as pulled:
+        while True:
+            with timer.stage("decode", in_flight.stream):
+                item = next(pulled, None)
+            if item is None:
+                break
+            if cancel_event is not None and cancel_event.is_set():
+                raise InterruptedError("Render canceled.")
+            count = item.frames.shape[0]
+            offset = 0
+            while offset < count:
+                # a staged batch's chunks (and their retries) read its
+                # pinned copy, which the input cannot overwrite
+                end = offset + smallest_batch
+                pinned = (None if item.pinned is None
+                          else item.pinned[offset:end])
+                chunk = (item.frames[offset:end] if pinned is None
+                         else pinned.numpy())
+                start = item.first + offset
+                offset += len(chunk)
+                ids = in_flight.next_ids()
+                with timer.stage("device", *ids):
+                    try:
+                        pending = submit_effects_batch(
+                            chunk, settings, out_h, out_w, start,
+                            device=device, mesh=mesh, as_uint8=True,
+                            batch_size=smallest_batch, pinned=pinned)
+                    except RuntimeError as exc:
+                        if not _is_oom(exc):
+                            raise
+                        pending = None
+                if pending is not None:
+                    if in_flight.push(pending, ids, (chunk, start)):
+                        force()
+                    continue
+                # Outside the device stage: force and the write open their
+                # own stages, and StageTimer is a plain accumulator.
+                while in_flight:
                     force()
-                continue
-            # Outside the device stage: force and the write open their own
-            # stages, and StageTimer is a plain accumulator.
-            while in_flight:
-                force()
-            with timer.stage("device", *ids):
-                enhanced = retry(chunk, start)
-            with timer.stage("encode"):
-                write(enhanced)
-        frames_done += count
-        if on_batch is not None:
-            on_batch(count, frames_done, smallest_batch)
+                with timer.stage("device", *ids):
+                    enhanced = retry(chunk, start)
+                with timer.stage("encode"):
+                    write(enhanced)
+            frames_done += count
+            if on_batch is not None:
+                on_batch(count, frames_done, smallest_batch)
     while in_flight:  # drain the dispatch pipeline
         force()
     return frames_done, smallest_batch

@@ -5,7 +5,10 @@ JAX (``vrgdg_tpu/__init__.py`` imports it).  ``mp4concat.cpp`` is a copy
 of the original's source, the same code (a CPU test holds every code line
 equal): a lossless MP4 sample-table merger that joins the enhancer's
 segments by stream copy where no ffmpeg binary is present, compiled on
-first use with the system g++.
+first use with the system g++.  ``stage.cpp`` (the port's own, loaded
+by :class:`vrgdg_tpu_torch.runtime.batch_stream.Stager`) copies a
+streamed batch into its staging buffer on a pool of threads that never
+take the interpreter lock.
 
 Build artifacts go to ``_build/`` beside the source (or
 ``$VRGDG_TPU_NATIVE_CACHE``) under a name keyed by a hash of the source,

@@ -9,7 +9,8 @@ Counterpart of :mod:`vrgdg_tpu.runtime.profiling`:
   device loop in it.
 - :func:`span`: a named range around one piece of a batch stream's work
   (:mod:`vrgdg_tpu_torch.runtime.batch_stream`'s ``batch.stage``,
-  ``batch.enqueue``, ``batch.wait``) and inside the enqueue
+  ``batch.stage_wait``, ``batch.enqueue``, ``batch.wait``) and inside the
+  enqueue
   (``grade.phase1`` / ``grade.stats`` / ``grade.phase2``, the eager
   stages ``grade.lut`` / ``grade.adjust`` / ``grade.match`` /
   ``grade.sharpen`` / ``grade.grain``, the enhancer's ``enhance.step``
@@ -24,7 +25,9 @@ Counterpart of :mod:`vrgdg_tpu.runtime.profiling`:
   belongs to, its counts) to :data:`SPANS`.  A span given a CUDA
   ``device`` also records a timing event on that device's current stream
   as it opens and as it closes; :func:`device_ms` reads the device time
-  between them.
+  between them.  :func:`log_span` logs a record of work that ran on
+  threads the profiler does not see (a batch staged ahead on native
+  threads), from that work's own times.
 - :class:`StageTimer`: named wall-clock accumulators behind the appliers'
   ``stage_seconds`` breakdown (decode / device / encode); each stage is
   also a span, so the batch spans nest under ``device``.
@@ -183,6 +186,18 @@ def span(name: str, stream: int | None = None, batch: int | None = None,
     if not torch.autograd._profiler_enabled():
         return _OFF
     return _Span(name, stream, batch, counts, device)
+
+
+def log_span(name: str, start_ns: int, end_ns: int,
+             stream: int | None = None, batch: int | None = None,
+             **counts: int) -> None:
+    """While a profiler records on this thread, log a :class:`SpanRecord`
+    of work that ran off this thread, on threads the profiler does not
+    see, from ``start_ns`` to ``end_ns`` (``time.perf_counter_ns``'s
+    clock); it has no parent and no range in the trace."""
+    if torch.autograd._profiler_enabled():
+        SPANS.add(SpanRecord(next(_ids), name, start_ns, end_ns, None,
+                             stream, batch, counts))
 
 
 def device_ms(record: SpanRecord) -> float | None:
