@@ -109,13 +109,20 @@ def test_config_equals_from_reference_of_jax(jax_stack, key):
                              device="cpu")
     assert bench.stack_configs()[key] == port
     kernels = bench.expected_kernels(port)
+    mode = bench.run_mode(port)
     if port.fused_mode == "fused":
-        assert bench.run_mode(port) == bench.FUSED_MODE
+        assert mode == bench.FUSED_MODE
         assert kernels == ("grade_phase1", "grade_phase2")
     elif key == "fused_pallas_grain":
-        assert kernels == ("film_grain",)
+        # an eager stack with a bundle LUT launches lut_apply on a card
+        assert kernels == ("lut_apply", "film_grain")
+        assert mode == "eager (torch ops, lut_apply and film_grain kernels)"
+    elif key in ("lut_only", "fused"):
+        assert kernels == ("lut_apply",)
+        assert mode == "eager (torch ops, lut_apply kernel)"
     else:
         assert kernels == ()
+        assert mode == "eager (torch ops)"
 
 
 def test_operands_match_jax(jax_stack, port_operands):

@@ -678,7 +678,8 @@ def test_grade_on_mesh_on_one_card():
 def test_bench_runs_small_on_the_card():
     """``vrgdg_tpu_torch.bench.run`` at 2 steps a chain: every config and
     stage measured, the fused configs launching both grade kernels, the
-    kernel-grain config and the enhance step launching ``film_grain`` (its
+    eager configs with a LUT launching ``lut_apply``, the kernel-grain
+    config and the enhance step launching ``film_grain`` (its
     CPU twin is ``tests/test_torch_bench.py``, which needs JAX)."""
     from vrgdg_tpu_torch import bench
 
@@ -694,6 +695,9 @@ def test_bench_runs_small_on_the_card():
         assert configs[name]["launches"]["grade_phase2"] > 0
     for name in ("fused_4k_pallas_grain", "enhance_step_1080p_to_4k"):
         assert configs[name]["launches"]["film_grain"] > 0
+    for name in ("lut_1080p", "fused_4k", "fused_4k_pallas_grain"):
+        assert configs[name]["launches"]["lut_apply"] > 0
+        assert "lut_apply" in configs[name]["mode"]
     assert set(result["stage_ms_per_4k_frame"]) == set(bench.STAGES)
     assert result["device"]["name"] == torch.cuda.get_device_name(0)
 

@@ -290,19 +290,27 @@ def run_mode(config: GradeConfig) -> str:
     """What the port runs for ``config``."""
     if config.fused_mode == "fused":
         return FUSED_MODE
-    if config.grain is not None and config.grain_mode == "kernel":
-        return "eager (torch ops, film_grain kernel)"
-    return "eager (torch ops)"
+    kernels = expected_kernels(config)
+    if not kernels:
+        return "eager (torch ops)"
+    return (f"eager (torch ops, {' and '.join(kernels)} "
+            f"kernel{'s' if len(kernels) > 1 else ''})")
 
 
 def expected_kernels(config: GradeConfig) -> tuple[str, ...]:
-    """The port's CUDA kernels a step of ``config`` must launch."""
+    """The port's CUDA kernels a step of ``config`` must launch on a card:
+    the fused pair, or in the eager mode ``lut_apply`` for a bundle LUT
+    (``ops.lut.apply_lut_bundle`` on CUDA frames) and ``film_grain`` for
+    the kernel grain."""
     if config.fused_mode == "fused":
         return ("grade_phase1", "grade_phase2")
+    kernels = ()
+    if config.lut is not None and config.lut_mode == "bundle":
+        kernels += ("lut_apply",)
     if config.grain is not None and config.grain.intensity > 0 \
             and config.grain_mode == "kernel":
-        return ("film_grain",)
-    return ()
+        kernels += ("film_grain",)
+    return kernels
 
 
 def stack_operands(device):

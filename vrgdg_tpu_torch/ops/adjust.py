@@ -17,7 +17,12 @@ order on clamped [0,1] BHWC frames:
 Each slider runs only when it is non-zero (fade and vignette only when
 positive), exactly as in the JAX code.  :func:`adjust_stages` gives the
 stack as stages with the halo rows each reads, for height-sharded frames
-(:mod:`vrgdg_tpu_torch.parallel.spatial`).
+(:mod:`vrgdg_tpu_torch.parallel.spatial`).  :func:`apply_adjust` runs each
+stage in a :func:`~vrgdg_tpu_torch.runtime.profiling.span`:
+``grade.adjust.tone`` (steps 1-5), ``grade.adjust.clarity`` (counter
+``kernel``, the blur's width), ``grade.adjust.sharpen`` and
+``grade.adjust.finish`` (fade, vignette and the clamp), each counting the
+batch's ``frames``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from ..core.colorspace import rec709_luma
 from ..core.params import AdjustSettings
+from ..runtime.profiling import span
 from .halo import RowWindow, pad_index
 
 
@@ -133,6 +139,30 @@ def _fade_vignette(frames: torch.Tensor, s: AdjustSettings,
     return torch.clamp(out, 0.0, 1.0)
 
 
+def _named_stages(settings: AdjustSettings, height: int, width: int):
+    """:func:`adjust_stages` with each stage's span name and counts:
+    ``(name, counts, halo, stage)``."""
+    s = settings
+    if not s.enabled or s.is_identity:
+        return [("finish", {}, 0,
+                 lambda frames, rows: torch.clamp(frames, 0.0, 1.0))]
+    stages = [("tone", {}, 0, lambda frames, rows: _tone(frames, s))]
+    clarity = s.clarity / 100.0
+    if abs(clarity) > 0.001:
+        kernel = _clarity_kernel(height, width)
+        if kernel >= 3:
+            stages.append(("clarity", {"kernel": kernel}, kernel // 2,
+                           lambda frames, rows: _clarity(
+                               frames, clarity, kernel, rows)))
+    sharpen = s.sharpen / 100.0
+    if sharpen > 0.001:
+        stages.append(("sharpen", {}, 1, lambda frames, rows: _fine_sharpen(
+            frames, sharpen, rows)))
+    stages.append(("finish", {}, 0,
+                   lambda frames, rows: _fade_vignette(frames, s, rows)))
+    return stages
+
+
 def adjust_stages(settings: AdjustSettings, height: int, width: int):
     """The adjust stack as ``(halo, stage)`` pairs, in order, for frames
     ``height`` x ``width``.
@@ -144,29 +174,20 @@ def adjust_stages(settings: AdjustSettings, height: int, width: int):
     the sharpen slider 1, the rest 0.  :func:`apply_adjust` runs the stages
     on whole frames; a height-sharded grade exchanges ``halo`` rows between
     neighbours before each."""
-    s = settings
-    if not s.enabled or s.is_identity:
-        return [(0, lambda frames, rows: torch.clamp(frames, 0.0, 1.0))]
-    stages = [(0, lambda frames, rows: _tone(frames, s))]
-    clarity = s.clarity / 100.0
-    if abs(clarity) > 0.001:
-        kernel = _clarity_kernel(height, width)
-        if kernel >= 3:
-            stages.append((kernel // 2, lambda frames, rows: _clarity(
-                frames, clarity, kernel, rows)))
-    sharpen = s.sharpen / 100.0
-    if sharpen > 0.001:
-        stages.append((1, lambda frames, rows: _fine_sharpen(
-            frames, sharpen, rows)))
-    stages.append((0, lambda frames, rows: _fade_vignette(frames, s, rows)))
-    return stages
+    return [(halo, stage)
+            for _, _, halo, stage in _named_stages(settings, height, width)]
 
 
 def apply_adjust(frames: torch.Tensor, settings: AdjustSettings) -> torch.Tensor:
-    """Apply the full adjust stack to a BHWC [0,1] batch."""
+    """Apply the full adjust stack to a BHWC [0,1] batch, each stage in its
+    span (see the module's docstring); on a CUDA batch a span that records
+    also times its stage with a pair of CUDA events."""
     height, width = int(frames.shape[1]), int(frames.shape[2])
     rows = RowWindow.whole(height)
+    count = int(frames.shape[0])
     out = frames
-    for _, stage in adjust_stages(settings, height, width):
-        out = stage(out, rows)
+    for name, counts, _, stage in _named_stages(settings, height, width):
+        with span("grade.adjust." + name, device=frames.device,
+                  frames=count, **counts):
+            out = stage(out, rows)
     return out
